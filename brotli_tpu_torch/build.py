@@ -43,6 +43,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _DECODE2_ARGS = [_P] * 12 + [_I] * 9
 _RESOLVE_ARGS = [_P] * 5 + [_I, _I, ctypes.c_longlong]
+_PACK_ARGS = [_P] * 12 + [_I] * 9
 
 
 def _nvcc() -> str:
@@ -106,11 +107,12 @@ def kernels_lib() -> ctypes.CDLL:
     """The CUDA kernels (nvcc, sm_90a), built at first use."""
     name = "brotli_tpu_torch_kernels"
     if name not in _libs:
-        srcs = [CSRC / "decode2.cu", CSRC / "resolve.cu"]
+        srcs = [CSRC / "decode2.cu", CSRC / "resolve.cu", CSRC / "pack.cu"]
         path = _build(name, [_nvcc(), *NVCC_FLAGS], srcs)
         _load(name, path, {
             "brotli_torch_decode2": _DECODE2_ARGS + [_P],
             "brotli_torch_resolve": _RESOLVE_ARGS + [_P],
+            "brotli_torch_pack": _PACK_ARGS + [_P],
         })
     return _libs[name]
 
@@ -126,5 +128,6 @@ def host_lib() -> ctypes.CDLL:
         _load(name, path, {
             "brotli_torch_decode2_host": _DECODE2_ARGS,
             "brotli_torch_resolve_host": _RESOLVE_ARGS,
+            "brotli_torch_pack_host": _PACK_ARGS,
         })
     return _libs[name]

@@ -1,9 +1,10 @@
-// Host build of the kernels' per-lane logic (decode2.cuh, resolve.cuh),
-// compiled with g++ so the CPU tests can hold the exact code the CUDA
-// kernels run against the plain PyTorch versions.  Test-only: the decode
-// path never calls it.  The argument layouts are those of the CUDA entry
-// points in decode2.cu and resolve.cu, without the stream.
+// Host build of the kernels' per-lane logic (decode2.cuh, resolve.cuh,
+// pack.cuh), compiled with g++ so the CPU tests can hold the exact code the
+// CUDA kernels run against the plain PyTorch versions.  Test-only: the
+// encode and decode paths never call it.  The argument layouts are those of the CUDA entry
+// points in decode2.cu, resolve.cu and pack.cu, without the stream.
 #include "decode2.cuh"
+#include "pack.cuh"
 #include "resolve.cuh"
 
 using namespace brotli_torch;
@@ -47,6 +48,38 @@ extern "C" int brotli_torch_resolve_host(const void* tok, const void* count,
         (const u32*)tok + lane, n_lanes, ((const i32*)count)[lane], cap,
         ((const i32*)mlen)[lane], (u8*)out + (i64)lane * out_stride,
         out_stride);
+  }
+  return 0;
+}
+
+extern "C" int brotli_torch_pack_host(
+    const void* rec0, const void* rec1, const void* tab, const void* cmap,
+    const void* consts, const void* grp, const void* init0,
+    const void* initav, const void* sw, const void* stype, void* words,
+    void* status, int n_lanes, int rows, int n_groups, int tab_n, int cmap_n,
+    int nt, int nbt, int pseg, int nseg) {
+  if (n_lanes <= 0 || rows < 0 || n_groups <= 0 || tab_n <= 0 ||
+      cmap_n < 128 || nt < 1 || pseg <= 0 || nseg <= 0 ||
+      (nbt > 1 && (sw == nullptr || stype == nullptr)))
+    return 1;
+  const PackTables T{(const i32*)tab, (const i32*)cmap, (const i32*)consts,
+                     tab_n, cmap_n, n_groups};
+  const PackParams P{nt, nbt, pseg, nseg, rows, n_lanes};
+  const i64 n = n_lanes;
+  i32* st = (i32*)status;
+  for (int lane = 0; lane < n_lanes; ++lane) {
+    const PackResult r = pack_lane(
+        T, P, (const i32*)rec0 + lane, (const i32*)rec1 + lane,
+        ((const i32*)grp)[lane], ((const i32*)init0)[lane],
+        ((const i32*)initav)[lane],
+        nbt > 1 ? (const i32*)sw + lane : nullptr,
+        nbt > 1 ? (const i32*)stype + lane : nullptr, (i32*)words + lane);
+    st[0 * n + lane] = (i32)r.widx;
+    st[1 * n + lane] = (i32)r.avail;
+    st[2 * n + lane] = (i32)r.b0;
+    st[3 * n + lane] = (i32)r.b1;
+    st[4 * n + lane] = (i32)r.b2;
+    st[5 * n + lane] = (i32)r.ovf;
   }
   return 0;
 }

@@ -14,7 +14,23 @@ Phases, in order; any failure raises and the exit code is non-zero:
 4. far distances -- 256 x 8 KB streams encoded without a distance cap (the
    reference's resolve ring flags these) decode with no fallback;
 5. times with CUDA events: each kernel on the staged main-path batch and
-   its plain PyTorch version at the same shape.
+   its plain PyTorch version at the same shape;
+6. enc kernel == plain version on the card, bit for bit (words, widx,
+   avail, tail limbs, ovf), 1024 x 2 KB, for the three literal-tree
+   branches (one tree; context-mapped trees in two table groups; block
+   types), then the whole encode of that batch on the card against the
+   same encode on the CPU, stream for stream, per branch;
+7. enc main path -- encode_device_batch(device="cuda") of 1024 x 32 KB =
+   33.6 MB at the default knobs, decoded back through
+   decode_batch_device_e2e(device="cuda"): equal to the input, no host
+   fallback on either side, all three kernels launched; CUDA events around
+   each stage inside that one encode;
+8. enc times -- the pack kernel on the main path's records, and its plain
+   version against the main path's kernel output;
+9. enc bench config -- the reference bench's encode setting at the same
+   shape: one pack launch counted, every stream host-decodes to its chunk,
+   no ovf lane, ratio, stage times, and the plain pack against the kernel
+   bit for bit at the widest table indexing (8 groups x 8 trees).
 
 Every timing line carries the card's name and power limit.  The line before
 the last is a JSON object describing the kernels; the last line is
@@ -24,6 +40,7 @@ prints no result.  It imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -37,6 +54,16 @@ CHUNK = 8192
 GROUPS = 4
 MAX_DISTANCE = 2032        # bench.py's e2e encode setting
 REF_RING_LIMIT = 4096 - 16  # pallas_resolve.MAX_DEVICE_DISTANCE
+ENC_CHUNK = 32768           # device_encode.CHUNK_N
+# the reference bench's encode setting (bench.py:62-67, :285-291)
+ENC_BENCH = dict(chain_depth=4, table_groups=8, lit_ctx_trees=8,
+                 hist_stride=16, sample_stride=2048)
+# one knob set per literal-tree branch of the pack kernel
+ENC_PLAIN_SETS = {
+    "one tree": dict(),
+    "ctx trees, 2 groups": dict(table_groups=2, lit_ctx_trees=4),
+    "block types": dict(lit_ctx_trees=4, block_types=3, block_seg=512),
+}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -255,6 +282,243 @@ def phase_times(streams: list[bytes], card_str: str) -> dict:
             "errs": errs}
 
 
+def enc_pack_batch(data: bytes, chunk: int, table_groups: int = 1,
+                   lit_ctx_trees: int = 1, block_types: int = 1,
+                   block_seg: int = 2048):
+    """The pack kernel's inputs for `data`, made on the card by the port's
+    encoder stages (no kernel launched)."""
+    from brotli_tpu_torch.ops import device_encode as E
+
+    state = E._encode_start(data, torch.device("cuda"), chunk, 1, 256,
+                            lit_ctx=lit_ctx_trees > 1,
+                            block_types=block_types, block_seg=block_seg)
+    return E.prepare_pack(state, 22, table_groups, lit_ctx_trees)
+
+
+def phase_enc_kernel_vs_plain() -> int:
+    """The pack kernel against pack_records_ref on CUDA tensors."""
+    from brotli_tpu_torch.ops import device_encode as E
+
+    data = corpus(1024 * 2048)
+    worst = 0
+    for name, kw in ENC_PLAIN_SETS.items():
+        pb = enc_pack_batch(data, 2048, **kw)[0]
+        ker = E.pack_records(pb)
+        ref = E.pack_records_ref(pb)
+        torch.cuda.synchronize()
+        err = max_abs_err(ker, ref)
+        check(err == 0, f"pack kernel != plain version ({name}): {err}")
+        check(not bool(ker[1][5].any()), f"ovf lanes in the {name} batch")
+        worst = max(worst, err)
+        print(f"[enc kernel==plain] 1024 lanes x 2 KB, {name}: max_abs_err "
+              f"{err} over words and status (exact equality required)")
+    return worst
+
+
+def phase_enc_card_vs_cpu() -> None:
+    """encode_device_batch on the card == on the CPU (whose stages the tests
+    hold against JAX), per knob set.  Only the float32 block typing may
+    differ (a segment type that flips); such streams must still decode."""
+    import brotli_tpu_torch
+
+    data = corpus(1024 * 2048)
+    for name, kw in ENC_PLAIN_SETS.items():
+        t0 = time.perf_counter()
+        card_s = brotli_tpu_torch.encode_device_batch(
+            data, device="cuda", chunk_size=2048, **kw)
+        cpu_s = brotli_tpu_torch.encode_device_batch(
+            data, device="cpu", chunk_size=2048, **kw)
+        differ = [i for i, (a, b) in enumerate(zip(card_s, cpu_s)) if a != b]
+        check(len(card_s) == len(cpu_s), f"{name}: stream counts differ")
+        check(not differ or "block_types" in kw,
+              f"{name}: card and CPU streams differ at lanes {differ[:8]}")
+        for i in differ:
+            check(brotli_tpu_torch.host_decode(card_s[i])
+                  == data[i * 2048:(i + 1) * 2048],
+                  f"{name}: card stream {i} does not decode to its chunk")
+        print(f"[enc card==cpu] 1024 lanes x 2 KB, {name}: {len(differ)} of "
+              f"{len(card_s)} streams differ from the CPU encode "
+              f"({time.perf_counter() - t0:.3f} s, host clock)")
+
+
+# the encoder's stages, in the order one encode calls them; group_hist runs
+# inside prepare_pack
+ENC_STAGES = {
+    "stage_input": "upload", "find_matches": "matches",
+    "greedy_parse": "parse", "build_records": "records",
+    "prepare_pack": "host tables + headers", "group_hist": "of which histogram",
+    "pack_records": "pack kernel", "assemble_streams": "assembly",
+    "_encode_finish": "fetch + cut",
+}
+
+
+@contextlib.contextmanager
+def enc_stage_events():
+    """Record a CUDA event before and after each encoder stage while one
+    encode runs, and keep the pack kernel's input and output and the state
+    that _encode_finish reads.
+
+    The stages call each other through the module's globals, so wrapping
+    those wraps the stages of encode_device_batch itself.  Consecutive
+    stages' intervals partition the encode's timeline on the stream (a
+    stage that waits on the host, like prepare_pack, spans its host time)."""
+    from brotli_tpu_torch.ops import device_encode as E
+
+    seen = {"events": []}
+    saved = {name: getattr(E, name) for name in ENC_STAGES}
+
+    def wrap(name, fn):
+        def timed(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kw)
+            end.record()
+            seen["events"].append((name, start, end))
+            if name == "pack_records":
+                seen["pb"], seen["pack_out"] = args[0], out
+            elif name == "_encode_finish":
+                seen["state"] = args[0]
+            return out
+        return timed
+
+    for name, fn in saved.items():
+        setattr(E, name, wrap(name, fn))
+    try:
+        yield seen
+    finally:
+        for name, fn in saved.items():
+            setattr(E, name, fn)
+
+
+def enc_breakdown(seen: dict) -> str:
+    """Milliseconds per stage, in a line that names them, and their sum
+    (the histogram is inside the tables and is not added twice)."""
+    torch.cuda.synchronize()
+    ms: dict[str, float] = {}
+    for name, start, end in seen["events"]:
+        ms[name] = ms.get(name, 0.0) + start.elapsed_time(end)
+    total = sum(v for k, v in ms.items() if k != "group_hist")
+    parts = ", ".join(f"{label} {ms[k]:.4f} ms"
+                      for k, label in ENC_STAGES.items() if k in ms)
+    return f"{parts}; stages sum {total:.4f} ms"
+
+
+def encode_counted(data: bytes, **kw) -> tuple[list[bytes], float, dict]:
+    """encode_device_batch on the card with the pack launches counted from
+    0 and the stages timed; returns (streams, host-clock s, what was seen).
+    The launch count is read before anything else launches the kernel."""
+    import brotli_tpu_torch
+    from brotli_tpu_torch.ops import device_encode as E
+
+    enc0 = brotli_tpu_torch.encode_fallback_stats()["lanes_fallback"]
+    with enc_stage_events() as seen:
+        E.KERNEL_LAUNCHES = 0
+        t0 = time.perf_counter()
+        streams = brotli_tpu_torch.encode_device_batch(
+            data, device="cuda", chunk_size=ENC_CHUNK, **kw)
+        torch.cuda.synchronize()
+        enc_s = time.perf_counter() - t0
+        seen["launches"] = E.KERNEL_LAUNCHES
+    fell = brotli_tpu_torch.encode_fallback_stats()["lanes_fallback"] - enc0
+    check(len(streams) == 1024, f"{len(streams)} streams, want 1024")
+    check(fell == 0, f"{fell} lanes overflowed (host-encoded)")
+    check(seen["launches"] == 1,
+          f"the pack kernel launched {seen['launches']} times, want 1")
+    sizes = E.stream_sizes(seen["state"])
+    check(list(sizes) == [len(s) for s in streams],
+          "stream_sizes disagrees with the streams' lengths")
+    return streams, enc_s, seen
+
+
+def pack_vs_plain(seen: dict, what: str) -> tuple[int, float]:
+    """The plain pack on the PackBatch an encode built, against the kernel's
+    output in that encode, bit for bit; returns (max_abs_err, plain ms)."""
+    from brotli_tpu_torch.ops import device_encode as E
+
+    out = {}
+    plain_ms = cuda_ms(lambda: out.__setitem__(
+        "p", E.pack_records_ref(seen["pb"])), 1, warm_up=False)
+    err = max_abs_err(seen["pack_out"], out["p"])
+    check(err == 0, f"pack kernel != plain version at {what}: {err}")
+    return err, plain_ms
+
+
+def phase_enc_main(data: bytes, card_str: str):
+    """encode_device_batch -> decode_batch_device_e2e on the card, the
+    encode's stages timed inside it."""
+    import brotli_tpu_torch
+    from brotli_tpu_torch.ops import decode2 as D
+    from brotli_tpu_torch.ops import resolve as R
+
+    dec0 = brotli_tpu_torch.fallback_stats()["lanes_fallback"]
+    D.KERNEL_LAUNCHES = 0
+    R.KERNEL_LAUNCHES = 0
+    streams, enc_s, seen = encode_counted(data)
+    t0 = time.perf_counter()
+    got = brotli_tpu_torch.decode_batch_device_e2e(streams, device="cuda")
+    torch.cuda.synchronize()
+    dec_s = time.perf_counter() - t0
+    launches = {"pack": seen["launches"], "entropy": D.KERNEL_LAUNCHES,
+                "resolve": R.KERNEL_LAUNCHES}
+    dec_fell = brotli_tpu_torch.fallback_stats()["lanes_fallback"] - dec0
+    check(b"".join(got) == data, "encode -> decode differs from the input")
+    check(dec_fell == 0, f"{dec_fell} lanes fell back to the host decoder")
+    check(min(launches.values()) >= 1,
+          f"a kernel of the path never launched: {launches}")
+    ratio = sum(map(len, streams)) / len(data)
+    print(f"[enc main] {len(data)} B encoded on the card in {enc_s:.3f} s "
+          f"({len(data) / enc_s / 1e6:.3f} MB/s, host clock, whole "
+          f"encode_device_batch), ratio {ratio:.6f}; decoded back bit-exact "
+          f"in {dec_s:.3f} s; 0 ovf lanes, 0 decode fallback lanes, "
+          f"stream_sizes equals every stream's length, launches {launches}")
+    line = enc_breakdown(seen)
+    print(f"[enc times] {card_str}: default knobs, inside that encode (CUDA "
+          f"events, one run): {line}; whole encode {enc_s * 1e3:.3f} ms "
+          "(host clock)")
+    return launches, seen
+
+
+def phase_enc_bench(data: bytes, card_str: str) -> int:
+    """The reference bench's encode setting: host-decoded streams, the pack
+    kernel counted and held against its plain version at this shape."""
+    import brotli_tpu_torch
+
+    streams, dt, seen = encode_counted(data, **ENC_BENCH)
+    for i, s in enumerate(streams):
+        check(brotli_tpu_torch.host_decode(s)
+              == data[i * ENC_CHUNK:(i + 1) * ENC_CHUNK],
+              f"bench-config stream {i} does not host-decode to its chunk")
+    ratio = sum(map(len, streams)) / len(data)
+    print(f"[enc bench-config] {ENC_BENCH}: {len(streams)} streams host-decode "
+          f"to their chunks, 0 ovf lanes, ratio {ratio:.6f}, encode "
+          f"{dt:.3f} s ({len(data) / dt / 1e6:.3f} MB/s, host clock), pack "
+          f"launches {seen['launches']}")
+    line = enc_breakdown(seen)
+    print(f"[enc times] {card_str}: bench setting, inside that encode (CUDA "
+          f"events, one run): {line}")
+    err, plain_ms = pack_vs_plain(seen, "the bench setting")
+    print(f"[enc kernel==plain] 1024 lanes x 32 KB, bench setting "
+          f"({seen['pb'].tab.shape[0]} groups x {seen['pb'].nt} trees): "
+          f"max_abs_err {err} over words and status; plain pack {plain_ms:.3f} "
+          "ms (CUDA events, one run)")
+    return err
+
+
+def phase_enc_times(seen: dict, card_str: str) -> dict:
+    """The pack kernel on the main path's PackBatch, and its plain version
+    against the main path's kernel output."""
+    from brotli_tpu_torch.ops import device_encode as E
+
+    pack_ms = cuda_ms(lambda: E.pack_records(seen["pb"]), 5)
+    err, plain_ms = pack_vs_plain(seen, "the main shape")
+    print(f"[enc times] {card_str}: pack kernel {pack_ms:.4f} ms per "
+          f"{ENC_CHUNK * 1024} B batch (CUDA events, mean of 5, on the main "
+          f"path's records); plain pack {plain_ms:.3f} ms on the same batch "
+          f"(CUDA events, one run), max_abs_err {err}")
+    return {"pack_ms": pack_ms, "plain_pack_ms": plain_ms, "err": err}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing run",
@@ -263,6 +527,7 @@ def main() -> int:
     import brotli_tpu_torch  # noqa: F401  (fails outside a checkout)
 
     check("jax" not in sys.modules, "the port imported jax")
+    t_run = time.perf_counter()
     card_str = card()
     print(f"[card] {card_str}")
     phase_build(card_str)
@@ -271,6 +536,13 @@ def main() -> int:
     launches = phase_main_path(data, streams)
     phase_far()
     times = phase_times(streams, card_str)
+    enc_err = phase_enc_kernel_vs_plain()
+    phase_enc_card_vs_cpu()
+    enc_data = corpus(1024 * ENC_CHUNK)
+    enc_launches, enc_seen = phase_enc_main(enc_data, card_str)
+    enc_times = phase_enc_times(enc_seen, card_str)
+    del enc_seen
+    bench_err = phase_enc_bench(enc_data, card_str)
     check("jax" not in sys.modules, "the port imported jax")
 
     kernels = [
@@ -286,7 +558,15 @@ def main() -> int:
          "launches": launches["resolve"],
          "max_abs_err": max(errs["resolve"], times["errs"]["resolve"]),
          "ms": times["resolve_ms"], "plain_ms": times["plain_resolve_ms"]},
+        {"name": "pack_records", "route": "cuda",
+         "source": "brotli_tpu_torch/csrc/pack.cu",
+         "replaces": "brotli_tpu/ops/device_encode.py:689",
+         "launches": enc_launches["pack"],
+         "max_abs_err": max(enc_err, enc_times["err"], bench_err),
+         "ms": enc_times["pack_ms"], "plain_ms": enc_times["plain_pack_ms"]},
     ]
+    print(f"[wall] whole run {time.perf_counter() - t_run:.3f} s (host clock, "
+          "builds included)")
     print(f"[card] {card()}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
