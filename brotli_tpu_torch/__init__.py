@@ -10,6 +10,10 @@ kernel that CPU tensors take):
   ops/decode2.py        v2 entropy decode + the decode round trip
                         (brotli_tpu/ops/pallas_decode2.py), kernel
                         csrc/decode2.cu
+  ops/decode3.py        v3 full-format decode of single- and
+                        multi-metablock streams
+                        (brotli_tpu/ops/pallas_decode3.py), kernel
+                        csrc/decode3.cu
   ops/resolve.py        LZ resolve (brotli_tpu/ops/pallas_resolve.py),
                         kernel csrc/resolve.cu
   build.py              nvcc/g++ builds of csrc/, loaded with ctypes
@@ -17,27 +21,37 @@ kernel that CPU tensors take):
 
 The round trip on a card is
 `decode_batch_device_e2e(encode_device_batch(data, device="cuda"),
-device="cuda")`, which gives back the chunks of `data`.
+device="cuda")`, which gives back the chunks of `data`; streams made with
+`lit_ctx_trees > 1` or `block_types > 1` (context maps, block switching)
+decode through `decode_batch_v3(streams, device="cuda")`, and streams of
+several metablocks through `decode_batch_v3_full`.
 
 Shared with brotli_tpu, not copied (numpy, Python and C++ through ctypes;
 none of it imports JAX): the host encoder (brotli_tpu.encode), the device
 encoder's host steps (table clustering, Huffman codes, headers and
 block-switch plans in brotli_tpu.ops.device_encode), the host decoder
 (brotli_tpu.decode, brotli_tpu.native), the format tables
-(brotli_tpu.constants) and the host preflight that stages a batch
+(brotli_tpu.constants) and the host preflights that stage a batch
 (SharedBatch, preflight_shared, preflight_binned, lane_overran in
-brotli_tpu.ops.pallas_decode2).  This package never imports jax.
-`encode_sharded`, the host encoder, and `host_decode`, the host decoder
-(for `lit_ctx_trees > 1` streams until the v3 decoder is ported), are
-re-exported here so that a caller of the port needs no other import.
+brotli_tpu.ops.pallas_decode2; V3Batch, preflight_v3, assemble_v3 in
+brotli_tpu.ops.pallas_decode3).  This package never imports jax.
+The host codec is re-exported here so that a caller of the port needs no
+other import: `encode_sharded` (shared-table chunk streams), `host_encode`
+(one stream at quality 0-11), `Encoder` (streaming), `parallel_encode`
+(spliced fragments) and `host_decode`.
 """
 
 from brotli_tpu.decode import decode as host_decode
+from brotli_tpu.encode import Encoder
+from brotli_tpu.encode import encode as host_encode
 from brotli_tpu.encode.sharded import encode_sharded
+from brotli_tpu.parallel.shard import parallel_encode
 
 from .ops.decode2 import decode_batch_device_e2e, fallback_stats
+from .ops.decode3 import decode_batch_v3, decode_batch_v3_full
 from .ops.device_encode import encode_device_batch, encode_fallback_stats
 
-__all__ = ["decode_batch_device_e2e", "encode_device_batch",
+__all__ = ["Encoder", "decode_batch_device_e2e", "decode_batch_v3",
+           "decode_batch_v3_full", "encode_device_batch",
            "encode_fallback_stats", "encode_sharded", "fallback_stats",
-           "host_decode"]
+           "host_decode", "host_encode", "parallel_encode"]

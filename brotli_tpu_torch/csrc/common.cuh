@@ -40,4 +40,23 @@ BROTLI_HD i32 shr_sat(i32 x, i32 s) {
 BROTLI_HD i32 add_wrap(i32 a, i32 b) { return (i32)((u32)a + (u32)b); }
 BROTLI_HD i32 shl_wrap(i32 a, i32 s) { return (i32)((u32)a << ((u32)s & 31u)); }
 
+BROTLI_HD i32 clip(i32 x, i32 lo, i32 hi) { return x < lo ? lo : (x > hi ? hi : x); }
+
+// 32 bits of the 96-bit buffer (b2:b1:b0) from bit q, q in [0, 63] (JAX `peek`)
+BROTLI_HD u32 peek32(u32 b0, u32 b1, u32 b2, i32 q) {
+  const bool l0 = (q >> 5) == 0;
+  return funnel_r(l0 ? b0 : b1, l0 ? b1 : b2, (u32)(q & 31));
+}
+
+// A read through the read-only data cache on the card; a plain load on the
+// host.
+template <typename T>
+BROTLI_HD T ldg(const T* p) {
+#if defined(__CUDA_ARCH__)
+  return __ldg(p);
+#else
+  return *p;
+#endif
+}
+
 }  // namespace brotli_torch

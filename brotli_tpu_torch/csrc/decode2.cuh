@@ -65,12 +65,6 @@ BROTLI_HD i32 tab_lookup(const i32* t, i32 k, i32 idx) {
   return (idx >= 0 && idx < k * 128) ? t[idx] : 0;
 }
 
-// 32 bits of the 96-bit buffer (b2:b1:b0) from bit q (JAX `peek`)
-BROTLI_HD u32 peek32(u32 b0, u32 b1, u32 b2, i32 q) {
-  const bool l0 = (q >> 5) == 0;
-  return funnel_r(l0 ? b0 : b1, l0 ? b1 : b2, (u32)(q & 31));
-}
-
 // Two-level table read (JAX `read_symbol`): v15 holds the next 15 bits.
 BROTLI_HD void read_symbol(const i32* t, i32 k, u32 v15, i32& sym, i32& nb) {
   const i32 root = (i32)(v15 & 0xFFu);

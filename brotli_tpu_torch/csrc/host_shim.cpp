@@ -1,9 +1,11 @@
-// Host build of the kernels' per-lane logic (decode2.cuh, resolve.cuh,
-// pack.cuh), compiled with g++ so the CPU tests can hold the exact code the
+// Host build of the kernels' per-lane logic (decode2.cuh, decode3.cuh,
+// resolve.cuh, pack.cuh), compiled with g++ so the CPU tests can hold the exact code the
 // CUDA kernels run against the plain PyTorch versions.  Test-only: the
 // encode and decode paths never call it.  The argument layouts are those of the CUDA entry
-// points in decode2.cu, resolve.cu and pack.cu, without the stream.
+// points in decode2.cu, decode3.cu, resolve.cu and pack.cu, without the
+// stream.
 #include "decode2.cuh"
+#include "decode3.cuh"
 #include "pack.cuh"
 #include "resolve.cuh"
 
@@ -34,6 +36,44 @@ extern "C" int brotli_torch_decode2_host(
     ((i32*)count)[lane] = r.count;
     ((i32*)phase)[lane] = r.phase;
     ((i32*)widx)[lane] = r.widx;
+  }
+  return 0;
+}
+
+extern "C" int brotli_torch_decode3_host(
+    const void* wt, const void* lit, const void* cmd, const void* dist,
+    const void* bsw, const void* cmap, const void* dx, const void* consts,
+    const void* lut, const void* tfm, const void* dict, const void* tfs,
+    const void* cdict, const void* cfg, const void* scal, void* out,
+    void* status, int n_lanes, int wpad, int out_cap, int hrb, int dict_n,
+    int tfs_n, int cd_n, int cd_t, int use_dict) {
+  if (n_lanes <= 0 || n_lanes % 1024 != 0 || wpad < 1 || out_cap < 1 ||
+      hrb < 0 || dict_n < 1 || tfs_n < 1 || cd_n < 1 || cd_t < 0 ||
+      cd_t > cd_n)
+    return 1;
+  Decode3Shared S{};
+  S.consts = (const i32*)consts;
+  S.lut = (const i32*)lut;
+  S.tfm = (const i32*)tfm;
+  S.dict = (const u8*)dict;
+  S.tfs = (const u8*)tfs;
+  S.cdict = (const u8*)cdict;
+  S.dict_n = dict_n;
+  S.tfs_n = tfs_n;
+  S.cd_n = cd_n;
+  S.cd_t = cd_t;
+  S.use_dict = use_dict != 0;
+  const i64 stride = (i64)hrb + out_cap;
+  for (int lane = 0; lane < n_lanes; ++lane) {
+    const Decode3Group G = make_group3(
+        (const i32*)cfg + (lane / 1024) * NCFG3, (const i32*)lit,
+        (const i32*)cmd, (const i32*)dist, (const i32*)bsw, (const i32*)cmap,
+        (const i32*)dx);
+    const Decode3Lane L{(const u32*)wt + lane, n_lanes, wpad,
+                        (const i32*)scal + lane, n_lanes,
+                        (u8*)out + (i64)lane * stride, hrb, out_cap,
+                        (i32*)status + lane, n_lanes};
+    decode3_lane(S, G, L);
   }
   return 0;
 }

@@ -28,9 +28,29 @@ Phases, in order; any failure raises and the exit code is non-zero:
 8. enc times -- the pack kernel on the main path's records, and its plain
    version against the main path's kernel output;
 9. enc bench config -- the reference bench's encode setting at the same
-   shape: one pack launch counted, every stream host-decodes to its chunk,
+   shape: one pack launch counted, every stream decodes to its chunk
+   through decode_batch_v3(device="cuda", max_groups=8) with no fallback,
    no ovf lane, ratio, stage times, and the plain pack against the kernel
-   bit for bit at the widest table indexing (8 groups x 8 trees).
+   bit for bit at the widest table indexing (8 groups x 8 trees);
+10. v3 kernel == plain version on the card, bit for bit over the bytes and
+   all 16 status rows: 1024 x 1 KB port-encoded streams (4 context-mapped
+   trees, 2 table groups), host q9/q11 encodes with tree groups and block
+   switching in all three categories, one static-dictionary word per
+   transform (121) over a group, the compound-dictionary streams, and a
+   batch with one poisoned and one truncated lane (both must flag);
+11. v3 main path -- the reference bench's full-format shape: 6 groups x
+   1024 x 4096 B = 25,165,824 B encoded on the card by encode_device_batch
+   (lit_ctx_trees=8), decoded by decode_batch_v3(device="cuda",
+   max_groups=6): equal to the input, no fallback, the decode3 kernel
+   launched; host clock of the call with the preflight apart;
+12. v3 times with CUDA events on the staged main batch: the kernel at
+   use_dict=False (the bench's timed setting) and True, the output
+   allocation and fill alone, and the plain version once, equal to it;
+13. v3 full -- decode_batch_v3_full(device="cuda") on 1024 lanes of three
+   64 KB streams (a streaming Encoder(quality=5, lgwin=18) fed 1 KB updates
+   in 16 KB metablocks, a spliced parallel_encode stream, an uncompressed
+   one):
+   equal to the input, no fallback, one kernel launch per round.
 
 Every timing line carries the card's name and power limit.  The line before
 the last is a JSON object describing the kernels; the last line is
@@ -58,6 +78,35 @@ ENC_CHUNK = 32768           # device_encode.CHUNK_N
 # the reference bench's encode setting (bench.py:62-67, :285-291)
 ENC_BENCH = dict(chain_depth=4, table_groups=8, lit_ctx_trees=8,
                  hist_stride=16, sample_stride=2048)
+# the reference bench's full-format setting (bench.py:68-72, 336-344)
+V3_BENCH = dict(chunk_size=4096, max_distance=1008, chain_depth=4,
+                table_groups=1, lit_ctx_trees=8)
+V3_GROUPS = 6
+# Crafted streams (tests/test_torch_decode3.py builds them with brotli_tpu's
+# bit writer): one static-dictionary word per transform, all 121; the
+# compound-dictionary copies with their dictionaries (the last one runs
+# past the dictionary's end and must flag); a copy whose distance is past
+# the window and the dictionary range (must flag).
+DICT_121 = bytes.fromhex(
+    "1b900400200060030e5caa5587261a1b5687f9d56f0a07e1c3e7851e2ef65de47eb8e0"
+    "45470f46f42feadebab8f7b418ebe818e80e8cec70d99d46e5fa6ab52e341b67c3b46e"
+    "fa1e6a1d55f6da1cf0dd1a70178c6048460353dd74b84b11ef1655ac576bd33e510793"
+    "80719a51c0cb238fa6c46b4defda29e483a5a3c03d53e83a29bf27ff195ae0c285cf8c"
+    "c0dc4b9cc91162913143a10c57cda0d939ba23f741c321cc42e60ca79e415d722c36f6"
+    "ea5cb2cf5bff4138a0aa0b167b220a208386728c6128258d0de68977d208491d5c2dca"
+    "d8657dcb623d37347c479290e619da54c7c0760e84e98133a56aafd6f23688bf437e7c"
+    "88a0e914b615048f58fa10c71f157db628c0a54b28a28925ba711190b0322a6e984c71"
+    "f42cbda24bbb89f5987297b6cade6c51bd5db477ec029f9bc357d0888b25f252cc64ed"
+    "39dd91d212955d02bb17d9304b5e0c")
+COMPOUND = [
+    ([bytes.fromhex("1b0a000020c3c4c6c293b07401"),
+      bytes.fromhex("1b050000a0f0f24292900c")],
+     b"hello world dictionary content!"),
+    ([bytes.fromhex("1b0c000020422299a008")], [b"AAAABBBB", b"CCCCDDDD"]),
+]
+COMPOUND_OVERFLOW = (bytes.fromhex("1b12000020c3c4c6429b90d402"), b"tiny")
+POISONED = bytes.fromhex("1b0b0000c003c6f6a64397f08172ba0f000001")
+
 # one knob set per literal-tree branch of the pack kernel
 ENC_PLAIN_SETS = {
     "one tree": dict(),
@@ -480,20 +529,32 @@ def phase_enc_main(data: bytes, card_str: str):
 
 
 def phase_enc_bench(data: bytes, card_str: str) -> int:
-    """The reference bench's encode setting: host-decoded streams, the pack
-    kernel counted and held against its plain version at this shape."""
+    """The reference bench's encode setting: the streams decoded back
+    through the v3 kernel, the pack kernel counted and held against its
+    plain version at this shape."""
     import brotli_tpu_torch
+    from brotli_tpu_torch.ops import decode3 as D3
 
     streams, dt, seen = encode_counted(data, **ENC_BENCH)
-    for i, s in enumerate(streams):
-        check(brotli_tpu_torch.host_decode(s)
-              == data[i * ENC_CHUNK:(i + 1) * ENC_CHUNK],
-              f"bench-config stream {i} does not host-decode to its chunk")
+    fb0 = brotli_tpu_torch.fallback_stats()["lanes_fallback"]
+    n0 = D3.KERNEL_LAUNCHES
+    t0 = time.perf_counter()
+    got = brotli_tpu_torch.decode_batch_v3(streams, device="cuda",
+                                           max_groups=8)
+    torch.cuda.synchronize()
+    dec_s = time.perf_counter() - t0
+    fell = brotli_tpu_torch.fallback_stats()["lanes_fallback"] - fb0
+    check(b"".join(got) == data, "bench-config streams do not decode to "
+          "their chunks through decode_batch_v3")
+    check(fell == 0, f"{fell} bench-config lanes fell back to the host")
+    check(D3.KERNEL_LAUNCHES > n0, "decode_batch_v3 did not launch decode3")
     ratio = sum(map(len, streams)) / len(data)
-    print(f"[enc bench-config] {ENC_BENCH}: {len(streams)} streams host-decode "
-          f"to their chunks, 0 ovf lanes, ratio {ratio:.6f}, encode "
-          f"{dt:.3f} s ({len(data) / dt / 1e6:.3f} MB/s, host clock), pack "
-          f"launches {seen['launches']}")
+    print(f"[enc bench-config] {card_str}: {ENC_BENCH}: {len(streams)} "
+          f"streams decode to their chunks through "
+          f"decode_batch_v3(device='cuda') in "
+          f"{dec_s:.3f} s (host clock), 0 fallback lanes, 0 ovf lanes, ratio "
+          f"{ratio:.6f}, encode {dt:.3f} s ({len(data) / dt / 1e6:.3f} MB/s, "
+          f"host clock), pack launches {seen['launches']}")
     line = enc_breakdown(seen)
     print(f"[enc times] {card_str}: bench setting, inside that encode (CUDA "
           f"events, one run): {line}")
@@ -517,6 +578,222 @@ def phase_enc_times(seen: dict, card_str: str) -> dict:
           f"path's records); plain pack {plain_ms:.3f} ms on the same batch "
           f"(CUDA events, one run), max_abs_err {err}")
     return {"pack_ms": pack_ms, "plain_pack_ms": plain_ms, "err": err}
+
+
+def dictmix(n: int) -> bytes:
+    """Half static-dictionary text, half sources: streams with several
+    trees, context modes and block types at q9/q11."""
+    src = b"".join(p.read_bytes()
+                   for p in sorted((ROOT / "brotli_tpu").rglob("*.py")))
+    dic = (ROOT / "brotli_tpu" / "data" / "dictionary.bin").read_bytes()
+    return dic[8000: 8000 + n // 2] + src[50000: 50000 + n // 2]
+
+
+def v3_kernel_vs_plain(tag: str, streams: list[bytes], expect: list,
+                       flag: set = frozenset(), custom_dictionary=None) -> int:
+    """decode3 against decode3_ref on one staged batch, bit for bit over
+    the bytes and the 16 status rows; lanes in `flag` must flag and the
+    others decode to `expect`."""
+    from brotli_tpu_torch.ops import decode3 as D3
+
+    batch = D3.preflight_v3(streams, max_groups=8)
+    check(batch is not None, f"{tag}: preflight_v3 refused the batch")
+    tb = D3.batch_to_torch_v3(batch, "cuda", custom_dictionary)
+    n0 = D3.KERNEL_LAUNCHES
+    ker = D3.decode3(tb)
+    ref = D3.decode3_ref(tb)
+    torch.cuda.synchronize()
+    check(D3.KERNEL_LAUNCHES == n0 + 1, "decode3 did not count its launch")
+    err = max_abs_err(ker, ref)
+    check(err == 0, f"{tag}: decode3 kernel != plain version ({err})")
+    out = ker[0][:, tb.hrb:].cpu().numpy()
+    status = ker[1].cpu().numpy()
+    flagged = set()
+    for slot in range(tb.n_lanes):
+        i = int(batch.perm[slot])
+        if i < 0:
+            continue
+        if status[0, slot] != 0 or status[4, slot] > batch.n_words[slot] + 4:
+            flagged.add(i)
+        else:
+            check(out[slot, : batch.mlens[slot]].tobytes() == expect[i],
+                  f"{tag}: stream {i} decodes wrong")
+    check(flagged == set(flag), f"{tag}: lanes {sorted(flagged)} flagged, "
+          f"want {sorted(flag)}")
+    print(f"[v3 kernel==plain] {tag}: {len(streams)} streams in "
+          f"{batch.groups} groups, max_abs_err {err} over bytes and 16 status "
+          f"rows (exact equality required), flagged lanes {sorted(flagged)}")
+    return err
+
+
+def phase_v3_kernel_vs_plain() -> int:
+    import brotli_tpu_torch
+
+    enc, dec = brotli_tpu_torch.host_encode, brotli_tpu_torch.host_decode
+    data = corpus(1024 * 1024)
+    port = brotli_tpu_torch.encode_device_batch(
+        data, device="cuda", chunk_size=1024, lit_ctx_trees=4, table_groups=2)
+    chunks = [data[i: i + 1024] for i in range(0, len(data), 1024)]
+    worst = v3_kernel_vs_plain("1024 x 1 KB port-encoded, 4 ctx trees, "
+                               "2 table groups", port, chunks)
+    # block types [2,2,2], [3,1,1], [2,1,2], [2,1,1]; 9, 10, 9 and 11
+    # literal trees
+    texts = [dictmix(8192), dictmix(6144), dictmix(6144), corpus(6144)]
+    host = [enc(texts[0], quality=9), enc(texts[1], quality=11),
+            enc(texts[2], quality=9), enc(texts[3], quality=11)]
+    worst = max(worst, v3_kernel_vs_plain(
+        "host q9/q11 encodes (tree groups, block switching)", host, texts))
+    worst = max(worst, v3_kernel_vs_plain(
+        "121 dictionary transforms x 1024", [DICT_121] * 1024,
+        [dec(DICT_121)] * 1024))
+    for streams, cd in COMPOUND:
+        worst = max(worst, v3_kernel_vs_plain(
+            "compound dictionary", streams,
+            [dec(x, custom_dictionary=cd) for x in streams],
+            custom_dictionary=cd))
+    s, cd = COMPOUND_OVERFLOW
+    worst = max(worst, v3_kernel_vs_plain(
+        "compound dictionary overflow", [s], [None], {0},
+        custom_dictionary=cd))
+    bad = port[:64]
+    cut = bad[5][: len(bad[5]) * 3 // 4]   # the body's end is missing
+    worst = max(worst, v3_kernel_vs_plain(
+        "poisoned + truncated lanes", bad[:5] + [cut] + bad[6:] + [POISONED],
+        chunks[:64] + [None], {5, 64}))
+    return worst
+
+
+def v3_main_streams(card_str: str) -> tuple[bytes, list[bytes]]:
+    """6 x 1024 x 4 KB, one encode_device_batch call per group."""
+    import brotli_tpu_torch
+
+    piece = 1024 * V3_BENCH["chunk_size"]
+    data = corpus(V3_GROUPS * piece)
+    enc0 = brotli_tpu_torch.encode_fallback_stats()["lanes_fallback"]
+    t0 = time.perf_counter()
+    streams = []
+    for g in range(V3_GROUPS):
+        streams += brotli_tpu_torch.encode_device_batch(
+            data[g * piece:(g + 1) * piece], device="cuda", **V3_BENCH)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    fell = brotli_tpu_torch.encode_fallback_stats()["lanes_fallback"] - enc0
+    check(fell == 0, f"{fell} v3 main lanes overflowed (host-encoded)")
+    check(len(streams) == V3_GROUPS * 1024, f"{len(streams)} streams")
+    print(f"[v3 main] {card_str}: {len(data)} B encoded on the card by "
+          f"{V3_GROUPS} encode_device_batch calls ({V3_BENCH}) in {dt:.3f} s (host "
+          f"clock), ratio {sum(map(len, streams)) / len(data):.6f}")
+    return data, streams
+
+
+def phase_v3_main(data: bytes, streams: list[bytes], card_str: str):
+    """decode_batch_v3 on the main shape, the decode3 launches counted from
+    0 and the host preflight timed inside the call."""
+    import brotli_tpu_torch
+    from brotli_tpu_torch.ops import decode3 as D3
+
+    seen = {}
+    preflight = D3.preflight_v3
+
+    def timed_preflight(*a, **k):
+        t = time.perf_counter()
+        seen["batch"] = preflight(*a, **k)
+        seen["pre_s"] = time.perf_counter() - t
+        return seen["batch"]
+
+    fb0 = brotli_tpu_torch.fallback_stats()["lanes_fallback"]
+    D3.preflight_v3 = timed_preflight
+    try:
+        D3.KERNEL_LAUNCHES = 0
+        t0 = time.perf_counter()
+        got = brotli_tpu_torch.decode_batch_v3(streams, device="cuda",
+                                               max_groups=V3_GROUPS)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = D3.KERNEL_LAUNCHES
+    finally:
+        D3.preflight_v3 = preflight
+    fell = brotli_tpu_torch.fallback_stats()["lanes_fallback"] - fb0
+    check(b"".join(got) == data, "v3 main output differs from the input")
+    check(fell == 0, f"{fell} v3 main lanes fell back to the host decoder")
+    check(launches >= 1, "decode3 never launched on the v3 main path")
+    check(seen["batch"].groups == V3_GROUPS, "v3 main batch is not 6 groups")
+    print(f"[v3 main] {card_str}: {len(data)} B decoded bit-exact through "
+          f"decode_batch_v3(device='cuda'), 0 fallback lanes, decode3 "
+          f"launches {launches}; whole call {dt:.3f} s (host clock), of which "
+          f"host preflight {seen['pre_s']:.3f} s")
+    return launches, seen["batch"]
+
+
+def phase_v3_times(batch, card_str: str) -> dict:
+    from brotli_tpu_torch.ops import decode3 as D3
+
+    tb = D3.batch_to_torch_v3(batch, "cuda")
+    total = int(batch.mlens.sum())
+    state = {}
+    ms_nd = cuda_ms(lambda: state.__setitem__("nd", D3.decode3(tb, False)), 5)
+    ms_d = cuda_ms(lambda: state.__setitem__("d", D3.decode3(tb, True)), 5)
+    fill = cuda_ms(lambda: D3._alloc_outputs(tb), 5)
+    plain = cuda_ms(lambda: state.__setitem__("p", D3.decode3_ref(tb, False)),
+                    1, warm_up=False)
+    err = max(max_abs_err(state["nd"], state["p"]),
+              max_abs_err(state["d"], state["p"]))
+    check(err == 0, f"decode3 != plain version on the v3 main batch: {err}")
+    print(f"[v3 times] {card_str}: decode3 kernel {ms_nd:.4f} ms at "
+          f"use_dict=False, {ms_d:.4f} ms at use_dict=True, per {total} B "
+          f"batch ({total / (ms_nd * 1e-3) / 1e6:.2f} MB/s at use_dict=False; "
+          f"CUDA events, mean of 5, of which output allocation and fill "
+          f"{fill:.4f} ms timed alone)")
+    print(f"[v3 times] {card_str}: plain decode3_ref {plain:.3f} ms on the "
+          f"same batch (CUDA events, one run), max_abs_err {err}")
+    return {"ms": ms_nd, "ms_dict": ms_d, "plain_ms": plain, "err": err}
+
+
+def phase_v3_full(card_str: str) -> int:
+    """decode_batch_v3_full on 1024 lanes of multi-metablock streams."""
+    import brotli_tpu_torch
+    from brotli_tpu_torch.ops import decode3 as D3
+
+    text = corpus(65536)
+    enc = brotli_tpu_torch.Encoder(quality=5, lgwin=18)
+    enc.params.lgblock = 14   # 16 KB metablocks
+    streaming = b"".join(enc.update(text[i: i + 1024])
+                         for i in range(0, len(text), 1024)) + enc.finish()
+    spliced = brotli_tpu_torch.parallel_encode(text, shard_size=16384,
+                                               quality=5, num_workers=1)
+    unc = brotli_tpu_torch.host_encode(text, quality=0)
+    for s in (streaming, spliced, unc):
+        check(brotli_tpu_torch.host_decode(s) == text, "a v3 full stream "
+              "does not host-decode")
+    lanes = [streaming] * 342 + [spliced] * 341 + [unc] * 341
+    rounds = []
+    run = D3.run_batch_v3
+
+    def counted(*a, **k):
+        rounds.append(1)
+        return run(*a, **k)
+
+    fb0 = brotli_tpu_torch.fallback_stats()["lanes_fallback"]
+    D3.run_batch_v3 = counted
+    try:
+        D3.KERNEL_LAUNCHES = 0
+        t0 = time.perf_counter()
+        got = brotli_tpu_torch.decode_batch_v3_full(lanes, device="cuda")
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = D3.KERNEL_LAUNCHES
+    finally:
+        D3.run_batch_v3 = run
+    fell = brotli_tpu_torch.fallback_stats()["lanes_fallback"] - fb0
+    check(all(g == text for g in got), "v3 full output differs from the input")
+    check(fell == 0, f"{fell} v3 full lanes fell back to the host decoder")
+    check(launches == len(rounds) >= 2,
+          f"{launches} decode3 launches for {len(rounds)} rounds")
+    print(f"[v3 full] {card_str}: 1024 lanes x 64 KB (streaming 16 KB "
+          f"metablocks, spliced 16 KB fragments, uncompressed) decoded bit-exact through "
+          f"decode_batch_v3_full(device='cuda') in {dt:.3f} s (host clock), "
+          f"0 fallback lanes, {len(rounds)} rounds, {launches} launches")
+    return launches
 
 
 def main() -> int:
@@ -543,6 +820,14 @@ def main() -> int:
     enc_times = phase_enc_times(enc_seen, card_str)
     del enc_seen
     bench_err = phase_enc_bench(enc_data, card_str)
+    del enc_data
+    v3_err = phase_v3_kernel_vs_plain()
+    v3_data, v3_streams = v3_main_streams(card_str)
+    v3_launches, v3_batch = phase_v3_main(v3_data, v3_streams, card_str)
+    del v3_data, v3_streams
+    v3_times = phase_v3_times(v3_batch, card_str)
+    del v3_batch
+    phase_v3_full(card_str)
     check("jax" not in sys.modules, "the port imported jax")
 
     kernels = [
@@ -564,6 +849,12 @@ def main() -> int:
          "launches": enc_launches["pack"],
          "max_abs_err": max(enc_err, enc_times["err"], bench_err),
          "ms": enc_times["pack_ms"], "plain_ms": enc_times["plain_pack_ms"]},
+        {"name": "decode3", "route": "cuda",
+         "source": "brotli_tpu_torch/csrc/decode3.cu",
+         "replaces": "brotli_tpu/ops/pallas_decode3.py:532",
+         "launches": v3_launches,
+         "max_abs_err": max(v3_err, v3_times["err"]),
+         "ms": v3_times["ms"], "plain_ms": v3_times["plain_ms"]},
     ]
     print(f"[wall] whole run {time.perf_counter() - t_run:.3f} s (host clock, "
           "builds included)")
