@@ -26,32 +26,39 @@ device="cuda")`, which gives back the chunks of `data`; streams made with
 decode through `decode_batch_v3(streams, device="cuda")`, and streams of
 several metablocks through `decode_batch_v3_full`.
 
-Shared with brotli_tpu, not copied (numpy, Python and C++ through ctypes;
-none of it imports JAX): the host encoder (brotli_tpu.encode), the device
-encoder's host steps (table clustering, Huffman codes, headers and
-block-switch plans in brotli_tpu.ops.device_encode), the host decoder
-(brotli_tpu.decode, brotli_tpu.native), the format tables
-(brotli_tpu.constants) and the host preflights that stage a batch
-(SharedBatch, preflight_shared, preflight_binned, lane_overran in
-brotli_tpu.ops.pallas_decode2; V3Batch, preflight_v3, assemble_v3 in
-brotli_tpu.ops.pallas_decode3).  This package never imports jax.
-The host codec is re-exported here so that a caller of the port needs no
-other import: `encode_sharded` (shared-table chunk streams), `host_encode`
-(one stream at quality 0-11), `Encoder` (streaming), `parallel_encode`
-(spliced fragments) and `host_decode`.
+Self-contained: the port imports nothing of brotli_tpu and never imports
+jax.  It keeps its own copy of the host code it needs (numpy, Python and
+C++ through ctypes), in the reference's layout:
+
+  constants.py, data/   format tables, static dictionary, transforms
+  decode/, native/      the host decoder (Python and C++), the native
+                        batch preflight and Huffman builders
+  encode/, parallel/    the host encoder (quality 0-11, streaming,
+                        shared-table chunks, spliced shards)
+  ops/preflight2.py, ops/preflight3.py, ops/encode_host.py
+                        the numpy host halves of the JAX ops modules
+                        (batch staging, table and header building)
+
+The tests hold every copy to its original.  The host codec is re-exported
+here so that a caller of the port needs no other import: `encode_sharded`
+(shared-table chunk streams), `host_encode` (one stream at quality 0-11),
+`Encoder` (streaming), `parallel_encode` (spliced fragments),
+`host_decode` and its `BrotliError`.
+
+The drivers run on the card unless the caller passes device="cpu".
 """
 
-from brotli_tpu.decode import decode as host_decode
-from brotli_tpu.encode import Encoder
-from brotli_tpu.encode import encode as host_encode
-from brotli_tpu.encode.sharded import encode_sharded
-from brotli_tpu.parallel.shard import parallel_encode
-
+from .decode import BrotliError
+from .decode import decode as host_decode
+from .encode import Encoder
+from .encode import encode as host_encode
+from .encode.sharded import encode_sharded
 from .ops.decode2 import decode_batch_device_e2e, fallback_stats
 from .ops.decode3 import decode_batch_v3, decode_batch_v3_full
 from .ops.device_encode import encode_device_batch, encode_fallback_stats
+from .parallel.shard import parallel_encode
 
-__all__ = ["Encoder", "decode_batch_device_e2e", "decode_batch_v3",
-           "decode_batch_v3_full", "encode_device_batch",
+__all__ = ["BrotliError", "Encoder", "decode_batch_device_e2e",
+           "decode_batch_v3", "decode_batch_v3_full", "encode_device_batch",
            "encode_fallback_stats", "encode_sharded", "fallback_stats",
            "host_decode", "host_encode", "parallel_encode"]

@@ -9,8 +9,11 @@ counterpart of brotli_tpu/native/__init__.py):
 * ``libbrotli_tpu_torch_host.so`` -- csrc/host_shim.cpp, the same per-lane
   logic built by ``g++`` for the CPU.  Only the tests use it.
 
-The parallel nvcc build takes 3.5 s on the H100's host where one nvcc
-command over the four sources takes 9.6 s.
+native/__init__.py builds the host codec's C++ library through `_build`
+too.
+
+The parallel nvcc build of the first four sources took 3.5 s on the
+H100's host where one nvcc command over them took 9.6 s.
 
 Each build is gated on a hash of its sources, headers and command, written
 beside the library, so a checkout always runs code built from its own
@@ -36,7 +39,8 @@ NVCC_FLAGS = [
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 NVCC_LINK_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-shared"]
-KERNEL_SOURCES = ["decode2.cu", "decode3.cu", "resolve.cu", "pack.cu"]
+KERNEL_SOURCES = ["decode2.cu", "decode3.cu", "resolve.cu", "pack.cu",
+                  "probe.cu"]
 HOST_FLAGS = ["-std=c++17", "-O2", "-fPIC"]
 HOST_LINK_FLAGS = ["-shared"]
 
@@ -52,6 +56,8 @@ _DECODE2_ARGS = [_P] * 12 + [_I] * 9
 _DECODE3_ARGS = [_P] * 17 + [_I] * 9
 _RESOLVE_ARGS = [_P] * 5 + [_I, _I, ctypes.c_longlong]
 _PACK_ARGS = [_P] * 12 + [_I] * 9
+_PROBE_V2_ARGS = [_P] * 3 + [_I] * 3
+_PROBE_V2B_ARGS = [_P] * 4 + [_I] * 8
 
 
 def _nvcc() -> str:
@@ -139,6 +145,8 @@ def kernels_lib() -> ctypes.CDLL:
             "brotli_torch_decode3": _DECODE3_ARGS + [_P],
             "brotli_torch_resolve": _RESOLVE_ARGS + [_P],
             "brotli_torch_pack": _PACK_ARGS + [_P],
+            "brotli_torch_probe_v2": _PROBE_V2_ARGS + [_P],
+            "brotli_torch_probe_v2b": _PROBE_V2B_ARGS + [_P],
         })
     return _libs[name]
 
@@ -157,5 +165,7 @@ def host_lib() -> ctypes.CDLL:
             "brotli_torch_decode3_host": _DECODE3_ARGS,
             "brotli_torch_resolve_host": _RESOLVE_ARGS,
             "brotli_torch_pack_host": _PACK_ARGS,
+            "brotli_torch_probe_v2_host": _PROBE_V2_ARGS,
+            "brotli_torch_probe_v2b_host": _PROBE_V2B_ARGS,
         })
     return _libs[name]

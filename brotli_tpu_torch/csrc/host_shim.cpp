@@ -1,12 +1,16 @@
 // Host build of the kernels' per-lane logic (decode2.cuh, decode3.cuh,
-// resolve.cuh, pack.cuh), compiled with g++ so the CPU tests can hold the exact code the
-// CUDA kernels run against the plain PyTorch versions.  Test-only: the
-// encode and decode paths never call it.  The argument layouts are those of the CUDA entry
-// points in decode2.cu, decode3.cu, resolve.cu and pack.cu, without the
-// stream.
+// resolve.cuh, pack.cuh, probe.cuh), compiled with g++ so the CPU tests can
+// hold the exact code the CUDA kernels run against the plain PyTorch
+// versions.  Test-only: the encode and decode paths never call it.  The
+// argument layouts are those of the CUDA entry points in decode2.cu,
+// decode3.cu, resolve.cu, pack.cu and probe.cu, without the stream.
+#include <algorithm>
+#include <vector>
+
 #include "decode2.cuh"
 #include "decode3.cuh"
 #include "pack.cuh"
+#include "probe.cuh"
 #include "resolve.cuh"
 
 using namespace brotli_torch;
@@ -121,5 +125,118 @@ extern "C" int brotli_torch_pack_host(
     st[4 * n + lane] = (i32)r.b2;
     st[5 * n + lane] = (i32)r.ovf;
   }
+  return 0;
+}
+
+template <int LEVEL>
+static void probe_v2_host(const i32* a, i32* carry, u32* staging, int blocks,
+                          int block_rows) {
+  for (int e = 0; e < PROBE_TILE; ++e) {
+    const i32* arow = a + (e / PROBE_LANES) * PROBE_LANES;
+    const u32 st0 = (u32)a[e];
+    ProbeV2 c{st0, st0 + 1u, st0 + 2u, 0};
+    for (int blk = 0; blk < blocks; ++blk) {
+      for (int r = 0; r < block_rows; ++r) {
+        probe_v2_row<LEVEL>(c, arow);
+        if (LEVEL >= 4) staging[(i64)r * PROBE_TILE + e] = c.b0;
+      }
+    }
+    carry[e] = (i32)c.b0;
+    carry[PROBE_TILE + e] = (i32)c.b1;
+    carry[2 * PROBE_TILE + e] = (i32)c.b2;
+    carry[3 * PROBE_TILE + e] = c.q;
+  }
+}
+
+extern "C" int brotli_torch_probe_v2_host(const void* a, void* carry,
+                                          void* staging, int level,
+                                          int blocks, int block_rows) {
+  if (blocks < 1 || block_rows < 1) return 1;
+  const i32* A = (const i32*)a;
+  switch (level) {
+    case 1: probe_v2_host<1>(A, (i32*)carry, (u32*)staging, blocks, block_rows); break;
+    case 2: probe_v2_host<2>(A, (i32*)carry, (u32*)staging, blocks, block_rows); break;
+    case 3: probe_v2_host<3>(A, (i32*)carry, (u32*)staging, blocks, block_rows); break;
+    case 4: probe_v2_host<4>(A, (i32*)carry, (u32*)staging, blocks, block_rows); break;
+    case 5: probe_v2_host<5>(A, (i32*)carry, (u32*)staging, blocks, block_rows); break;
+    default: return 1;
+  }
+  return 0;
+}
+
+// One tile row (a CUDA block's 128 lanes) at a time, the reductions over
+// its lanes; the refill copy only moves window contents, which no output
+// reads, so the host keeps the fill level alone.
+template <int NCARRY>
+static void probe_v2b_host(const i32* a, u32* out, i32* stat, int wo,
+                           int reduces, int dma_out, int blocks,
+                           int block_rows) {
+  std::vector<u32> c((std::size_t)PROBE_LANES * NCARRY);
+  std::vector<u32> staging((std::size_t)block_rows * PROBE_LANES);
+  for (int sub = 0; sub < PROBE_SUB; ++sub) {
+    std::fill(staging.begin(), staging.end(), 0u);
+    for (int l = 0; l < PROBE_LANES; ++l)
+      for (int i = 0; i < NCARRY; ++i)
+        c[l * NCARRY + i] = (u32)a[sub * PROBE_LANES + l] + (u32)i;
+    i32 filled = PROBE_WIN;
+    int blk = 0;
+    for (;; ++blk) {
+      if (blk >= blocks) break;
+      if (wo && reduces) {
+        bool any = false;
+        for (int l = 0; l < PROBE_LANES; ++l)
+          any = any || c[l * NCARRY] < 0xFFFFFFFFu;
+        if (!any) break;
+      }
+      i32 minp = 1 << 30;
+      if (reduces)
+        for (int l = 0; l < PROBE_LANES; ++l) {
+          const i32 k = probe_v2b_minkey(c[l * NCARRY], c[l * NCARRY + 1]);
+          minp = k < minp ? k : minp;
+        }
+      if (probe_v2b_refill(reduces != 0, minp, filled)) filled += PROBE_REFILL;
+      for (int l = 0; l < PROBE_LANES; ++l) {
+        u32 cl[NCARRY];
+        for (int i = 0; i < NCARRY; ++i) cl[i] = c[l * NCARRY + i];
+        for (int r = 0; r < block_rows; ++r) {
+          probe_v2b_row<NCARRY>(cl);
+          staging[r * PROBE_LANES + l] = cl[0];
+        }
+        for (int i = 0; i < NCARRY; ++i) c[l * NCARRY + i] = cl[i];
+      }
+      if (dma_out)
+        for (int r = 0; r < block_rows; ++r)
+          for (int l = 0; l < PROBE_LANES; ++l)
+            out[(i64)r * PROBE_TILE + sub * PROBE_LANES + l] =
+                staging[r * PROBE_LANES + l];
+    }
+    for (int l = 0; l < PROBE_LANES; ++l) {
+      staging[l] = c[l * NCARRY];
+      for (int r = 0; r < 8; ++r)
+        out[(i64)r * PROBE_TILE + sub * PROBE_LANES + l] =
+            staging[r * PROBE_LANES + l];
+    }
+    stat[2 * sub] = blk;
+    stat[2 * sub + 1] = filled;
+  }
+}
+
+extern "C" int brotli_torch_probe_v2b_host(const void* a, const void* wt,
+                                           void* out, void* stat, int ncarry,
+                                           int while_outer, int reduces,
+                                           int dma_in, int dma_out,
+                                           int blocks, int block_rows,
+                                           int wrows) {
+  (void)wt;
+  (void)dma_in;
+  if (blocks < 1 || block_rows < 8 || wrows < PROBE_FILL_CAP) return 1;
+  if (ncarry == 4)
+    probe_v2b_host<4>((const i32*)a, (u32*)out, (i32*)stat, while_outer,
+                      reduces, dma_out, blocks, block_rows);
+  else if (ncarry == 18)
+    probe_v2b_host<18>((const i32*)a, (u32*)out, (i32*)stat, while_outer,
+                       reduces, dma_out, blocks, block_rows);
+  else
+    return 1;
   return 0;
 }

@@ -1,10 +1,11 @@
 """v2 entropy decode and the device decode round trip.  Counterpart of
 brotli_tpu/ops/pallas_decode2.py.
 
-The host half is shared, not copied: `preflight_shared` / `preflight_binned`
-stage a batch of same-table streams into a `SharedBatch` (numpy), exactly as
-for the JAX kernel.  `batch_to_torch` turns that staging into the port's
-tensors, and the device half runs two kernels:
+The host half is the port's copy of the reference's (ops/preflight2.py):
+`preflight_shared` / `preflight_binned` stage a batch of same-table streams
+into a `SharedBatch` (numpy), exactly as for the JAX kernel.
+`batch_to_torch` turns that staging into the port's tensors, and the device
+half runs two kernels:
 
 1. `entropy_decode` (csrc/decode2.cu): bits -> v2 tokens, one thread per
    stream, the group's tables in shared memory;
@@ -28,7 +29,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from brotli_tpu.ops.pallas_decode2 import (
+from ..decode import decode as host_decode
+from ..device import resolve_device
+from .preflight2 import (
     CMD,
     CMD_K,
     CP_EX,
@@ -53,8 +56,6 @@ from brotli_tpu.ops.pallas_decode2 import (
     preflight_binned,
     preflight_shared,
 )
-
-from ..device import resolve_device
 from .resolve import resolve_tokens, unpack_resolved
 
 # Launches of the CUDA kernel, counted by the wrapper where it launches.
@@ -553,7 +554,7 @@ def _note_fallbacks(n_lanes: int, n_fallback: int) -> None:
 
 
 def decode_batch_device_e2e(streams: list[bytes], *,
-                            device: torch.device | str,
+                            device: torch.device | str = "cuda",
                             groups: int | None = None) -> list[bytes]:
     """Decode a batch of shared-table streams with both phases on `device`.
 
@@ -561,11 +562,9 @@ def decode_batch_device_e2e(streams: list[bytes], *,
     preflight_shared (rate-sorted), per-group tables through
     preflight_binned.  Lanes that end in a phase other than DONE, read past
     their own words, or carry resolve flags are re-decoded by
-    brotli_tpu.decode; a batch neither preflight accepts is host-decoded
+    the host decoder; a batch neither preflight accepts is host-decoded
     whole.  Every such lane counts in fallback_stats().
     """
-    from brotli_tpu.decode import decode as host_decode
-
     dev = resolve_device(device)
     if groups is None:
         groups = min(MAX_GROUPS, -(-len(streams) // NSTREAM))

@@ -1,11 +1,12 @@
 """v3 full-format decode.  Counterpart of brotli_tpu/ops/pallas_decode3.py.
 
-The host half is shared, not copied: `preflight_v3` / `assemble_v3` parse
-each stream's metablock header and tables and bin the streams by table
-signature into groups of 1024 lanes (`V3Batch`, numpy), exactly as for the
-JAX kernel.  `batch_to_torch_v3` turns that staging into the port's tensors
-and `decode3` runs one kernel (csrc/decode3.cu) that decodes every lane's
-metablock, entropy and LZ together, into the lane's own output slot.
+The host half is the port's copy of the reference's (ops/preflight3.py):
+`preflight_v3` / `assemble_v3` parse each stream's metablock header and
+tables and bin the streams by table signature into groups of 1024 lanes
+(`V3Batch`, numpy), exactly as for the JAX kernel.  `batch_to_torch_v3`
+turns that staging into the port's tensors and `decode3` runs one kernel
+(csrc/decode3.cu) that decodes every lane's metablock, entropy and LZ
+together, into the lane's own output slot.
 
 Drivers: `decode_batch_v3` (single-metablock streams) and
 `decode_batch_v3_full` (any stream: the host walks the metablock headers and
@@ -28,7 +29,16 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from brotli_tpu.ops.pallas_decode3 import (
+from ..decode import decode as host_decode
+from ..decode.bitreader import BitReader, BrotliError
+from ..decode.engine import (
+    _MetablockState,
+    _decode_window_bits,
+    _read_metablock_length,
+)
+from ..device import resolve_device
+from .decode2 import _note_fallbacks, _wrap32
+from .preflight3 import (
     BLCH,
     BSW2,
     BTCH,
@@ -62,9 +72,6 @@ from brotli_tpu.ops.pallas_decode3 import (
     assemble_v3,
     preflight_v3,
 )
-
-from ..device import resolve_device
-from .decode2 import _note_fallbacks, _wrap32
 
 # Launches of the CUDA kernel, counted by the wrapper where it launches.
 KERNEL_LAUNCHES = 0
@@ -802,7 +809,8 @@ def _lanes(batch: V3Batch, out: torch.Tensor, status: torch.Tensor):
     return st, out.cpu().numpy()
 
 
-def decode_batch_v3(streams: list[bytes], *, device: torch.device | str,
+def decode_batch_v3(streams: list[bytes], *,
+                    device: torch.device | str = "cuda",
                     use_dict: bool = True, max_groups: int = 4,
                     custom_dictionary=None) -> list[bytes]:
     """Full-format decode of single-metablock streams on `device`.
@@ -812,8 +820,6 @@ def decode_batch_v3(streams: list[bytes], *, device: torch.device | str,
     compound dictionary).  Flagged lanes re-decode on the host; a batch the
     preflight refuses (another stream shape, more than `max_groups` table
     groups) is host-decoded whole.  Both count in fallback_stats()."""
-    from brotli_tpu.decode import decode as host_decode
-
     dev = resolve_device(device)
     batch = preflight_v3(streams, max_groups=max_groups)
     if batch is None:
@@ -838,7 +844,8 @@ def decode_batch_v3(streams: list[bytes], *, device: torch.device | str,
     return results  # type: ignore[return-value]
 
 
-def decode_batch_v3_full(streams: list[bytes], *, device: torch.device | str,
+def decode_batch_v3_full(streams: list[bytes], *,
+                         device: torch.device | str = "cuda",
                          use_dict: bool = True, max_groups: int = 4,
                          custom_dictionary=None) -> list[bytes]:
     """Decode arbitrary (multi-metablock) Brotli streams on `device`.
@@ -852,14 +859,6 @@ def decode_batch_v3_full(streams: list[bytes], *, device: torch.device | str,
     rows give the exact end bit (32*widx - avail) from which the host reads
     the next header.  Streams beyond the _FULL_* caps, or lanes that flag,
     are decoded on the host and counted in fallback_stats()."""
-    from brotli_tpu.decode import decode as host_decode
-    from brotli_tpu.decode.bitreader import BitReader, BrotliError
-    from brotli_tpu.decode.engine import (
-        _MetablockState,
-        _decode_window_bits,
-        _read_metablock_length,
-    )
-
     dev = resolve_device(device)
     n = len(streams)
     outs: list[bytearray] = [bytearray() for _ in range(n)]

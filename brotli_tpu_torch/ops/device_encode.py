@@ -18,8 +18,8 @@ Stages, per batch of B_LANES chunks of up to CHUNK_N bytes:
 3. `build_records`: symbol records already in stream order;
 4. `segment_stats` (block_types > 1): k-means and Viterbi block typing;
 5. `group_hist`: a strided record sample binned by one bincount;
-6. host: lane clustering, Huffman tables and headers, shared with
-   brotli_tpu (numpy, no JAX);
+6. host: lane clustering, Huffman tables and headers (numpy,
+   ops/encode_host.py, the port's copy of the reference's host steps);
 7. `pack_records`: records -> LSB-first words, the CUDA kernel
    csrc/pack.cu on CUDA tensors (`pack_records_ref` on CPU tensors);
 8. `assemble_streams`: header words, body words and the bit tail per lane.
@@ -40,16 +40,17 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from brotli_tpu.constants import (
+from ..constants import (
     COPY_LENGTH_OFFSET,
     DISTANCE_SHORT_CODE_DELTA,
     DISTANCE_SHORT_CODE_INDEX,
     INSERT_LENGTH_OFFSET,
 )
-from brotli_tpu.decode.engine import _CONTEXT_LUT
-from brotli_tpu.encode import encode as host_encode
-from brotli_tpu.encode.api import _encode_empty
-from brotli_tpu.ops.device_encode import (
+from ..decode.engine import _CONTEXT_LUT
+from ..device import resolve_device
+from ..encode import encode as host_encode
+from ..encode.api import _encode_empty
+from .encode_host import (
     B_LANES,
     CELL,
     CHUNK_N,
@@ -72,8 +73,6 @@ from brotli_tpu.ops.device_encode import (
     _split_group_hist,
     _tab_chunks,
 )
-
-from ..device import resolve_device
 
 # Launches of the CUDA pack kernel, counted by the wrapper where it launches.
 KERNEL_LAUNCHES = 0
@@ -524,21 +523,28 @@ def segment_stats(data_u8: torch.Tensor, is_lit: torch.Tensor, nbt: int,
 def device_stages(data_u8, n_valid, hash_stride: int = 1,
                   max_distance: int | None = None, chain_depth: int = 2,
                   lit_ctx: bool = False, nbt: int = 1, pseg: int = 2048,
-                  hash2: bool = False, lazy=(105, 175), min_gate: int = 9):
+                  hash2: bool = False, lazy=(105, 175), min_gate: int = 9,
+                  mark=None):
     """Stages 1-4: records ready for packing (device_encode._device_stages).
-    With nbt > 1 the first literal of each segment carries bit 26."""
+    With nbt > 1 the first literal of each segment carries bit 26.
+    `mark(name)`, when given, is called as each stage ends."""
+    mark = mark or (lambda name: None)
     mlen, mdist = find_matches(data_u8, n_valid, hash_stride, max_distance,
                                chain_depth, hash2)
+    mark("matches")
     is_cs, is_lit, dcode_short = greedy_parse(mlen, mdist, n_valid, lazy,
                                               min_gate)
+    mark("parse")
     rec0, rec1, n_rec = build_records(data_u8, mlen, mdist, is_cs, is_lit,
                                       dcode_short, n_valid, lit_ctx=lit_ctx)
     if nbt <= 1:
+        mark("records")
         return rec0, rec1, n_rec
     seg_type, seg_litcnt, first = segment_stats(data_u8, is_lit, nbt, pseg)
     # record row p+1 holds position p (row 0 is the first command)
     flag = torch.cat([first.new_zeros((first.shape[0], 1)), first], dim=1)
     rec0 = rec0 | (flag << 26)
+    mark("records")
     return rec0, rec1, n_rec, seg_type, seg_litcnt
 
 
@@ -900,9 +906,10 @@ def _encode_start(data: bytes, device: torch.device, chunk_size: int,
                   hist_stride: int = _HIST_STRIDE_DEFAULT,
                   block_types: int = 1, block_seg: int = 2048,
                   hash2: bool = False, lazy=(105, 175),
-                  min_gate: int = 9) -> dict:
+                  min_gate: int = 9, on_stage=None) -> dict:
     """Upload the batch and run stages 1-4 on `device`; returns the state
-    the later steps take (device_encode._encode_start)."""
+    the later steps take (device_encode._encode_start).  `on_stage(name,
+    state)`, when given, is called as each stage ends."""
     if not (0 < chunk_size <= CHUNK_N and chunk_size % CELL == 0):
         raise ValueError(f"chunk_size must be a multiple of {CELL} in "
                          f"(0, {CHUNK_N}], got {chunk_size}")
@@ -915,18 +922,19 @@ def _encode_start(data: bytes, device: torch.device, chunk_size: int,
                          "block_types <= 7 and chunk_size % block_seg == 0")
 
     data_t, n_valid_np, n_valid = stage_input(data, chunk_size, device)
+    state = dict(data=data, device=device, chunk_size=chunk_size,
+                 n_chunks=n_chunks, n_valid_np=n_valid_np,
+                 hist_stride=hist_stride, block_types=nbt,
+                 block_seg=block_seg)
+    mark = None if on_stage is None else (lambda name: on_stage(name, state))
     outs = device_stages(data_t, n_valid, hash_stride, max_distance,
                          chain_depth, lit_ctx, nbt, block_seg, hash2,
-                         tuple(lazy), min_gate)
+                         tuple(lazy), min_gate, mark)
     rec0, rec1 = outs[0], outs[1]
     seg_type, seg_litcnt = (outs[3], outs[4]) if nbt > 1 else (None, None)
-    return dict(
-        data=data, device=device, chunk_size=chunk_size, n_chunks=n_chunks,
-        n_valid_np=n_valid_np, rec0=rec0, rec1=rec1,
-        rec0_sample=rec0[:, ::sample_stride], hist_stride=hist_stride,
-        block_types=nbt, block_seg=block_seg,
-        seg_type=seg_type, seg_litcnt=seg_litcnt,
-    )
+    state.update(rec0=rec0, rec1=rec1, rec0_sample=rec0[:, ::sample_stride],
+                 seg_type=seg_type, seg_litcnt=seg_litcnt)
+    return state
 
 
 def _headers(state: dict, lgwin: int, tables: list, group_of: np.ndarray,
@@ -1063,13 +1071,18 @@ def prepare_pack(state: dict, lgwin: int, table_groups: int = 1,
 
 
 def _encode_mid(state: dict, lgwin: int, table_groups: int = 1,
-                lit_ctx_trees: int = 1) -> None:
+                lit_ctx_trees: int = 1, on_stage=None) -> None:
     """Host tables and headers, then the pack kernel and the assembly
-    (device_encode._encode_mid)."""
+    (device_encode._encode_mid).  The state keeps the pack kernel's input
+    (`pb`) and output (`words`, `status`)."""
+    on_stage = on_stage or (lambda name, st: None)
     pb, hdr, h_np = prepare_pack(state, lgwin, table_groups, lit_ctx_trees)
+    state.update(pb=pb, h_np=h_np, lgwin=lgwin)
+    on_stage("host tables", state)
     words, status = pack_records(pb)
-    swords = assemble_streams(words, status, *hdr)
-    state.update(swords=swords, status=status, h_np=h_np, lgwin=lgwin)
+    state.update(words=words, status=status)
+    on_stage("pack", state)
+    state.update(swords=assemble_streams(words, status, *hdr))
 
 
 def stream_sizes(state: dict) -> np.ndarray:
@@ -1111,7 +1124,7 @@ def _encode_finish(state: dict) -> list[bytes]:
 def encode_device_batch(
     data: bytes,
     *,
-    device: torch.device | str,
+    device: torch.device | str = "cuda",
     chunk_size: int = CHUNK_N,
     lgwin: int = 22,
     sample_stride: int = 256,
@@ -1126,6 +1139,7 @@ def encode_device_batch(
     hash2: bool = False,
     lazy=(105, 175),
     min_gate: int = 9,
+    on_stage=None,
 ) -> list[bytes]:
     """Encode `data` on `device` as up to B_LANES chunk streams.
 
@@ -1135,7 +1149,10 @@ def encode_device_batch(
     lit_ctx_trees > 1 codes literals with context-mapped trees and
     block_types > 1 adds literal block switching (both need the v3 decoder
     or the host decoder).  CPU tensors take the pack kernel's plain
-    version; "cuda" launches the kernel, and raises without a card."""
+    version; "cuda" launches the kernel, and raises without a card.
+    `on_stage(name, state)`, when given, is called as each stage ends
+    (matches, parse, records, host tables, pack, assembly) with the
+    encode's state; utils/profiling.profile_device_encode times them."""
     dev = resolve_device(device)
     data = bytes(data)
     if not data:
@@ -1144,6 +1161,10 @@ def encode_device_batch(
                           max_distance, chain_depth,
                           lit_ctx=lit_ctx_trees > 1, hist_stride=hist_stride,
                           block_types=block_types, block_seg=block_seg,
-                          hash2=hash2, lazy=lazy, min_gate=min_gate)
-    _encode_mid(state, lgwin, table_groups, lit_ctx_trees)
-    return _encode_finish(state)
+                          hash2=hash2, lazy=lazy, min_gate=min_gate,
+                          on_stage=on_stage)
+    _encode_mid(state, lgwin, table_groups, lit_ctx_trees, on_stage)
+    streams = _encode_finish(state)
+    if on_stage is not None:
+        on_stage("assembly", state)
+    return streams

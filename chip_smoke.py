@@ -50,17 +50,31 @@ Phases, in order; any failure raises and the exit code is non-zero:
    64 KB streams (a streaming Encoder(quality=5, lgwin=18) fed 1 KB updates
    in 16 KB metablocks, a spliced parallel_encode stream, an uncompressed
    one):
-   equal to the input, no fallback, one kernel launch per round.
+   equal to the input, no fallback, one kernel launch per round;
+14. probes -- run_probe_v2 at every level and run_probe_v2b at every
+   variant of the TPU scripts, launches counted from 0; each kernel's
+   outputs held against its plain version bit for bit; ns per row;
+15. profile -- profile_e2e_decode on the main-path batch: per-phase times
+   and the device's busy share from torch.profiler (Chrome trace in
+   brotli_tpu_torch/build/trace/);
+16. entry() -- the port's entry point called once and synchronised.
 
-Every timing line carries the card's name and power limit.  The line before
-the last is a JSON object describing the kernels; the last line is
-{"ok": true, "device": {...}}.  Without a CUDA card it exits non-zero and
-prints no result.  It imports nothing of JAX.
+Kernel times come from utils.benchmarks.time_device_fn (CUDA events) and
+the encoder's stage times from utils.profiling.profile_device_encode,
+inside the main encode.  Every timing line carries the card's name and
+power limit.  The line before the last is a JSON object describing the
+kernels, with each one's bound: the least time the card could take, the
+larger of its bytes (inputs read once, outputs written once, counted from
+this run's data) over 3.35 TB/s and its integer operations over 67 T/s
+(the float32 rate outside the tensor cores, the nearest published peak:
+a lower bound on the time).  The last line is {"ok": true, "device": {...}}.
+Without a CUDA card it exits non-zero and prints no result.  It imports
+nothing of JAX and nothing of the JAX package (brotli_tpu): it checks both
+before and after its phases.
 """
 
 from __future__ import annotations
 
-import contextlib
 import json
 import subprocess
 import sys
@@ -70,6 +84,8 @@ from pathlib import Path
 import torch
 
 ROOT = Path(__file__).resolve().parent
+HBM_BPS = 3.35e12          # H100 SXM device memory, bytes/s
+INT_OPS = 67e12            # float32 outside the tensor cores, ops/s
 CHUNK = 8192
 GROUPS = 4
 MAX_DISTANCE = 2032        # bench.py's e2e encode setting
@@ -136,19 +152,33 @@ def corpus(n_bytes: int) -> bytes:
     return (base * (n_bytes // len(base) + 1))[:n_bytes]
 
 
-def cuda_ms(fn, reps: int, warm_up: bool = True) -> float:
-    """Mean device milliseconds of fn() over reps runs (CUDA events)."""
-    if warm_up:
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+def device_ms(fn) -> float:
+    """Device milliseconds per call of fn(): time_device_fn's best of 3
+    windows of 5 calls between CUDA events, after a warm-up call."""
+    from brotli_tpu_torch.utils.benchmarks import time_device_fn
+
+    return time_device_fn(fn) * 1e3
+
+
+def plain_ms(fn) -> float:
+    """One run of a plain version, CUDA events around it, no warm-up."""
+    from brotli_tpu_torch.utils.benchmarks import time_device_fn
+
+    return time_device_fn(fn, rep=1, samples=1, warm_up=False) * 1e3
+
+
+def bound_ms(n_bytes: float, n_ops: float = 0.0) -> tuple[float, str]:
+    """(least milliseconds the card could take, what bounds it)."""
+    t_bytes, t_ops = n_bytes / HBM_BPS * 1e3, n_ops / INT_OPS * 1e3
+    return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+
+
+def check_no_reference_imports() -> None:
+    """Neither JAX nor the JAX package (brotli_tpu) was imported."""
+    bad = sorted(m for m in sys.modules
+                 if m in ("jax", "brotli_tpu")
+                 or m.startswith(("jax.", "brotli_tpu.")))
+    check(not bad, f"the port imported {bad[:5]}")
 
 
 def max_abs_err(a, b) -> int:
@@ -296,17 +326,17 @@ def phase_times(streams: list[bytes], card_str: str) -> dict:
         tok, count, _, _ = state["e"]
         state["r"] = R.resolve_tokens(tok, count, tb.mlen, tb.max_mlen)
 
-    ent_ms = cuda_ms(ent, 5)
-    res_ms = cuda_ms(res, 5)
+    ent_ms = device_ms(ent)
+    res_ms = device_ms(res)
     # the wrappers zero their token and byte outputs; that fill is inside
     # the times above, so it is timed alone too
-    ent_fill = cuda_ms(lambda: D._alloc_outputs(tb), 5)
-    res_fill = cuda_ms(lambda: R._alloc_outputs(state["e"][0], tb.max_mlen), 5)
+    ent_fill = device_ms(lambda: D._alloc_outputs(tb))
+    res_fill = device_ms(lambda: R._alloc_outputs(state["e"][0], tb.max_mlen))
     mbps = total / ((ent_ms + res_ms) * 1e-3) / 1e6
     print(f"[times] {card_str}: entropy kernel {ent_ms:.4f} ms, resolve kernel "
-          f"{res_ms:.4f} ms per {total} B batch (CUDA events, mean of 5; "
-          f"of which output allocation and zero-fill {ent_fill:.4f} ms and "
-          f"{res_fill:.4f} ms)")
+          f"{res_ms:.4f} ms per {total} B batch (time_device_fn: CUDA events, "
+          f"best of 3 windows of 5; of which output allocation and zero-fill "
+          f"{ent_fill:.4f} ms and {res_fill:.4f} ms)")
     print(f"[times] {card_str}: e2e device decode {mbps:.2f} MB/s "
           "(decoded bytes / both kernels' device time, batch staged)")
     print(f"[times] {card_str}: host preflight {pre_ms:.3f} ms for "
@@ -314,20 +344,32 @@ def phase_times(streams: list[bytes], card_str: str) -> dict:
 
     # the plain versions once each, on CUDA tensors at the same shape (their
     # PyTorch ops are warm from the kernel == plain phase)
-    pe = cuda_ms(lambda: state.__setitem__("pe", D.entropy_decode_ref(tb)), 1,
-                 warm_up=False)
-    tok, count, _, _ = state["e"]
-    pr = cuda_ms(lambda: state.__setitem__(
-        "pr", R.resolve_tokens_ref(tok, count, tb.mlen, tb.max_mlen)), 1,
-        warm_up=False)
+    pe = plain_ms(lambda: state.__setitem__("pe", D.entropy_decode_ref(tb)))
+    tok, count, _, widx = state["e"]
+    pr = plain_ms(lambda: state.__setitem__(
+        "pr", R.resolve_tokens_ref(tok, count, tb.mlen, tb.max_mlen)))
     errs = {"entropy": max_abs_err(state["e"], state["pe"]),
             "resolve": max_abs_err(state["r"], state["pr"])}
     check(errs == {"entropy": 0, "resolve": 0},
           f"kernel != plain version on the main-path batch: {errs}")
     print(f"[times] {card_str}: plain entropy {pe:.3f} ms, plain resolve "
           f"{pr:.3f} ms on the same batch (CUDA events, one run each)")
+    # bounds: the words each lane consumed, the tables and per-lane scalars
+    # in, the tokens produced and three status words a lane out; then the
+    # tokens and counts in, the decoded bytes and a flag a lane out
+    n = tb.n_lanes
+    tokens = int(count.to(torch.int64).sum().item())
+    words = int(widx.to(torch.int64).sum().item())
+    tables = sum(t.numel() for t in (tb.lit, tb.cmd, tb.dist, tb.dx,
+                                     tb.consts))
+    ent_bound = bound_ms(4 * (words + tables + 2 * n + tokens + 3 * n))
+    res_bound = bound_ms(4 * (tokens + 2 * n + n) + total)
+    print(f"[times] {card_str}: bound entropy {ent_bound[0]:.6f} ms "
+          f"({words} words consumed, {tokens} tokens; {ent_bound[1]}), "
+          f"resolve {res_bound[0]:.6f} ms ({total} B out; {res_bound[1]})")
     return {"entropy_ms": ent_ms, "resolve_ms": res_ms,
             "plain_entropy_ms": pe, "plain_resolve_ms": pr,
+            "entropy_bound": ent_bound, "resolve_bound": res_bound,
             "errs": errs}
 
 
@@ -390,94 +432,41 @@ def phase_enc_card_vs_cpu() -> None:
               f"({time.perf_counter() - t0:.3f} s, host clock)")
 
 
-# the encoder's stages, in the order one encode calls them; group_hist runs
-# inside prepare_pack
-ENC_STAGES = {
-    "stage_input": "upload", "find_matches": "matches",
-    "greedy_parse": "parse", "build_records": "records",
-    "prepare_pack": "host tables + headers", "group_hist": "of which histogram",
-    "pack_records": "pack kernel", "assemble_streams": "assembly",
-    "_encode_finish": "fetch + cut",
-}
-
-
-@contextlib.contextmanager
-def enc_stage_events():
-    """Record a CUDA event before and after each encoder stage while one
-    encode runs, and keep the pack kernel's input and output and the state
-    that _encode_finish reads.
-
-    The stages call each other through the module's globals, so wrapping
-    those wraps the stages of encode_device_batch itself.  Consecutive
-    stages' intervals partition the encode's timeline on the stream (a
-    stage that waits on the host, like prepare_pack, spans its host time)."""
-    from brotli_tpu_torch.ops import device_encode as E
-
-    seen = {"events": []}
-    saved = {name: getattr(E, name) for name in ENC_STAGES}
-
-    def wrap(name, fn):
-        def timed(*args, **kw):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = fn(*args, **kw)
-            end.record()
-            seen["events"].append((name, start, end))
-            if name == "pack_records":
-                seen["pb"], seen["pack_out"] = args[0], out
-            elif name == "_encode_finish":
-                seen["state"] = args[0]
-            return out
-        return timed
-
-    for name, fn in saved.items():
-        setattr(E, name, wrap(name, fn))
-    try:
-        yield seen
-    finally:
-        for name, fn in saved.items():
-            setattr(E, name, fn)
-
-
-def enc_breakdown(seen: dict) -> str:
-    """Milliseconds per stage, in a line that names them, and their sum
-    (the histogram is inside the tables and is not added twice)."""
-    torch.cuda.synchronize()
-    ms: dict[str, float] = {}
-    for name, start, end in seen["events"]:
-        ms[name] = ms.get(name, 0.0) + start.elapsed_time(end)
-    total = sum(v for k, v in ms.items() if k != "group_hist")
-    parts = ", ".join(f"{label} {ms[k]:.4f} ms"
-                      for k, label in ENC_STAGES.items() if k in ms)
-    return f"{parts}; stages sum {total:.4f} ms"
-
-
 def encode_counted(data: bytes, **kw) -> tuple[list[bytes], float, dict]:
-    """encode_device_batch on the card with the pack launches counted from
-    0 and the stages timed; returns (streams, host-clock s, what was seen).
+    """encode_device_batch on the card through profile_device_encode, the
+    pack launches counted from 0 and the stages timed inside that encode;
+    returns (streams, host-clock s, what was seen: launches, phases, the
+    pack kernel's input `pb` and output `pack_out`, the encode's state).
     The launch count is read before anything else launches the kernel."""
     import brotli_tpu_torch
     from brotli_tpu_torch.ops import device_encode as E
+    from brotli_tpu_torch.utils.profiling import profile_device_encode
 
     enc0 = brotli_tpu_torch.encode_fallback_stats()["lanes_fallback"]
-    with enc_stage_events() as seen:
-        E.KERNEL_LAUNCHES = 0
-        t0 = time.perf_counter()
-        streams = brotli_tpu_torch.encode_device_batch(
-            data, device="cuda", chunk_size=ENC_CHUNK, **kw)
-        torch.cuda.synchronize()
-        enc_s = time.perf_counter() - t0
-        seen["launches"] = E.KERNEL_LAUNCHES
+    E.KERNEL_LAUNCHES = 0
+    streams, phases, summary, state = profile_device_encode(
+        data, "cuda", chunk_size=ENC_CHUNK, **kw)
+    seen = {"launches": E.KERNEL_LAUNCHES, "phases": phases,
+            "pb": state["pb"], "pack_out": (state["words"], state["status"]),
+            "state": state}
     fell = brotli_tpu_torch.encode_fallback_stats()["lanes_fallback"] - enc0
     check(len(streams) == 1024, f"{len(streams)} streams, want 1024")
     check(fell == 0, f"{fell} lanes overflowed (host-encoded)")
     check(seen["launches"] == 1,
           f"the pack kernel launched {seen['launches']} times, want 1")
-    sizes = E.stream_sizes(seen["state"])
+    sizes = E.stream_sizes(state)
     check(list(sizes) == [len(s) for s in streams],
           "stream_sizes disagrees with the streams' lengths")
-    return streams, enc_s, seen
+    return streams, summary["wall_s"], seen
+
+
+def enc_breakdown(seen: dict) -> str:
+    """Milliseconds per stage (profile_device_encode), in a line that names
+    them, and their sum."""
+    parts = ", ".join(f"{p.name} {p.seconds * 1e3:.4f} ms"
+                      for p in seen["phases"])
+    total = sum(p.seconds for p in seen["phases"]) * 1e3
+    return f"{parts}; stages sum {total:.4f} ms"
 
 
 def pack_vs_plain(seen: dict, what: str) -> tuple[int, float]:
@@ -486,11 +475,24 @@ def pack_vs_plain(seen: dict, what: str) -> tuple[int, float]:
     from brotli_tpu_torch.ops import device_encode as E
 
     out = {}
-    plain_ms = cuda_ms(lambda: out.__setitem__(
-        "p", E.pack_records_ref(seen["pb"])), 1, warm_up=False)
+    ms = plain_ms(lambda: out.__setitem__("p", E.pack_records_ref(seen["pb"])))
     err = max_abs_err(seen["pack_out"], out["p"])
     check(err == 0, f"pack kernel != plain version at {what}: {err}")
-    return err, plain_ms
+    return err, ms
+
+
+def pack_bound(seen: dict) -> tuple[float, str]:
+    """The pack kernel's bound on an encode's PackBatch: the non-PAD records
+    (rec0 and rec1) and the tables in, the words written and six status
+    words a lane out."""
+    pb = seen["pb"]
+    words, status = seen["pack_out"]
+    n_rec = int((((pb.rec0 >> 28) & 0xF) != 0).sum().item())
+    tables = sum(t.numel() for t in (pb.tab, pb.cmap, pb.consts, pb.grp,
+                                     pb.init0, pb.initav, pb.sw, pb.stype)
+                 if t is not None)
+    written = int(status[0].to(torch.int64).sum().item())
+    return bound_ms(4 * (2 * n_rec + tables + written + 6 * pb.n_lanes))
 
 
 def phase_enc_main(data: bytes, card_str: str):
@@ -522,9 +524,9 @@ def phase_enc_main(data: bytes, card_str: str):
           f"in {dec_s:.3f} s; 0 ovf lanes, 0 decode fallback lanes, "
           f"stream_sizes equals every stream's length, launches {launches}")
     line = enc_breakdown(seen)
-    print(f"[enc times] {card_str}: default knobs, inside that encode (CUDA "
-          f"events, one run): {line}; whole encode {enc_s * 1e3:.3f} ms "
-          "(host clock)")
+    print(f"[enc times] {card_str}: default knobs, inside that encode "
+          f"(profile_device_encode: CUDA events at each stage's ends, one "
+          f"run): {line}; whole encode {enc_s * 1e3:.3f} ms (host clock)")
     return launches, seen
 
 
@@ -556,12 +558,12 @@ def phase_enc_bench(data: bytes, card_str: str) -> int:
           f"{ratio:.6f}, encode {dt:.3f} s ({len(data) / dt / 1e6:.3f} MB/s, "
           f"host clock), pack launches {seen['launches']}")
     line = enc_breakdown(seen)
-    print(f"[enc times] {card_str}: bench setting, inside that encode (CUDA "
-          f"events, one run): {line}")
-    err, plain_ms = pack_vs_plain(seen, "the bench setting")
+    print(f"[enc times] {card_str}: bench setting, inside that encode "
+          f"(profile_device_encode, one run): {line}")
+    err, plain = pack_vs_plain(seen, "the bench setting")
     print(f"[enc kernel==plain] 1024 lanes x 32 KB, bench setting "
           f"({seen['pb'].tab.shape[0]} groups x {seen['pb'].nt} trees): "
-          f"max_abs_err {err} over words and status; plain pack {plain_ms:.3f} "
+          f"max_abs_err {err} over words and status; plain pack {plain:.3f} "
           "ms (CUDA events, one run)")
     return err
 
@@ -571,13 +573,16 @@ def phase_enc_times(seen: dict, card_str: str) -> dict:
     against the main path's kernel output."""
     from brotli_tpu_torch.ops import device_encode as E
 
-    pack_ms = cuda_ms(lambda: E.pack_records(seen["pb"]), 5)
-    err, plain_ms = pack_vs_plain(seen, "the main shape")
+    pack_ms = device_ms(lambda: E.pack_records(seen["pb"]))
+    err, plain = pack_vs_plain(seen, "the main shape")
+    bound = pack_bound(seen)
     print(f"[enc times] {card_str}: pack kernel {pack_ms:.4f} ms per "
-          f"{ENC_CHUNK * 1024} B batch (CUDA events, mean of 5, on the main "
-          f"path's records); plain pack {plain_ms:.3f} ms on the same batch "
-          f"(CUDA events, one run), max_abs_err {err}")
-    return {"pack_ms": pack_ms, "plain_pack_ms": plain_ms, "err": err}
+          f"{ENC_CHUNK * 1024} B batch (time_device_fn: CUDA events, best of "
+          f"3 windows of 5, on the main path's records); plain pack "
+          f"{plain:.3f} ms on the same batch (CUDA events, one run), "
+          f"max_abs_err {err}; bound {bound[0]:.6f} ms ({bound[1]})")
+    return {"pack_ms": pack_ms, "plain_pack_ms": plain, "err": err,
+            "bound": bound}
 
 
 def dictmix(n: int) -> bytes:
@@ -731,22 +736,30 @@ def phase_v3_times(batch, card_str: str) -> dict:
     tb = D3.batch_to_torch_v3(batch, "cuda")
     total = int(batch.mlens.sum())
     state = {}
-    ms_nd = cuda_ms(lambda: state.__setitem__("nd", D3.decode3(tb, False)), 5)
-    ms_d = cuda_ms(lambda: state.__setitem__("d", D3.decode3(tb, True)), 5)
-    fill = cuda_ms(lambda: D3._alloc_outputs(tb), 5)
-    plain = cuda_ms(lambda: state.__setitem__("p", D3.decode3_ref(tb, False)),
-                    1, warm_up=False)
+    ms_nd = device_ms(lambda: state.__setitem__("nd", D3.decode3(tb, False)))
+    ms_d = device_ms(lambda: state.__setitem__("d", D3.decode3(tb, True)))
+    fill = device_ms(lambda: D3._alloc_outputs(tb))
+    plain = plain_ms(lambda: state.__setitem__("p", D3.decode3_ref(tb, False)))
     err = max(max_abs_err(state["nd"], state["p"]),
               max_abs_err(state["d"], state["p"]))
     check(err == 0, f"decode3 != plain version on the v3 main batch: {err}")
+    # bound: the words each lane consumed, the tables and scalars in, the
+    # decoded bytes and the 16 status rows out
+    words = int(state["nd"][1][4].to(torch.int64).sum().item())
+    tables = sum(t.numel() for t in (tb.lit, tb.cmd, tb.dist, tb.bsw, tb.cmap,
+                                     tb.dx, tb.consts, tb.lut, tb.tfm,
+                                     tb.scal))
+    bound = bound_ms(4 * (words + tables) + total + 4 * 16 * tb.n_lanes)
     print(f"[v3 times] {card_str}: decode3 kernel {ms_nd:.4f} ms at "
           f"use_dict=False, {ms_d:.4f} ms at use_dict=True, per {total} B "
           f"batch ({total / (ms_nd * 1e-3) / 1e6:.2f} MB/s at use_dict=False; "
-          f"CUDA events, mean of 5, of which output allocation and fill "
-          f"{fill:.4f} ms timed alone)")
+          f"time_device_fn: CUDA events, best of 3 windows of 5, of which "
+          f"output allocation and fill {fill:.4f} ms timed alone); bound "
+          f"{bound[0]:.6f} ms ({words} words consumed; {bound[1]})")
     print(f"[v3 times] {card_str}: plain decode3_ref {plain:.3f} ms on the "
           f"same batch (CUDA events, one run), max_abs_err {err}")
-    return {"ms": ms_nd, "ms_dict": ms_d, "plain_ms": plain, "err": err}
+    return {"ms": ms_nd, "ms_dict": ms_d, "plain_ms": plain, "err": err,
+            "bound": bound}
 
 
 def phase_v3_full(card_str: str) -> int:
@@ -796,6 +809,107 @@ def phase_v3_full(card_str: str) -> int:
     return launches
 
 
+# integer operations of one row for one tile element, counted from the
+# TPU scripts' row bodies (tools/probe_v2.py:20-48, tools/probe_v2b.py:
+# 22-27).  probe_v2: level 1 xor, add, add, and (4); each of the 4 peeks
+# and, shift, sub, shift, compare, select, or, and, add (9); the consume
+# shift, compare, 3 selects, and, two funnels of 5, a shift (12); the
+# store (1); the gather and, load, add (3).  probe_v2b: xor, add, shift,
+# add, one add a further carry, the store.
+V2_ROW_OPS = {1: 4, 2: 40, 3: 52, 4: 53, 5: 56}
+V2B_ROW_OPS = {4: 7, 18: 21}
+
+
+def phase_probes(card_str: str) -> dict:
+    """Both probes at every level and variant through run_probe_*, the
+    launches counted from 0; then each kernel's outputs against its plain
+    version, bit for bit."""
+    from brotli_tpu_torch.tools import probe as P
+
+    # the inputs run_probe_* take
+    a, wt = (torch.from_numpy(x).cuda() for x in P.probe_inputs())
+    P.PROBE_V2_LAUNCHES = 0
+    P.PROBE_V2B_LAUNCHES = 0
+    v2 = {label: P.run_probe_v2(level) for label, level in P.V2_LEVELS}
+    v2b = {label: P.run_probe_v2b(variant)
+           for label, variant in P.V2B_VARIANTS}
+    torch.cuda.synchronize()
+    launches = {"probe_v2": P.PROBE_V2_LAUNCHES,
+                "probe_v2b": P.PROBE_V2B_LAUNCHES}
+    check(min(launches.values()) >= 1, f"a probe never launched: {launches}")
+    res = {"launches": launches}
+    for label, level in P.V2_LEVELS:
+        (outs, ns), ref = v2[label], {}
+        ms = plain_ms(lambda: ref.__setitem__("p", P.probe_v2_ref(a, level)))
+        err = max_abs_err(outs, ref["p"])
+        check(err == 0, f"probe_v2 {label}: kernel != plain version ({err})")
+        print(f"[probe] {card_str}: probe_v2  {label:44s} {ns:9.3f} ns/row "
+              f"(CUDA events, best of 3 windows of 20 launches, {P.V2_ROWS} "
+              f"rows); plain {ms:.3f} ms; max_abs_err {err} over b0, b1, b2, "
+              "q and staging")
+        if level == 5:
+            n = P.V2_ROWS * P.TILE[0] * P.TILE[1]
+            res["probe_v2"] = dict(
+                ms=ns * P.V2_ROWS / 1e6, plain_ms=ms, err=err,
+                bound=bound_ms(4 * (1024 + 4 * 1024 + outs[1].numel()),
+                               n * V2_ROW_OPS[level]))
+    for label, variant in P.V2B_VARIANTS:
+        (outs, ns), ref = v2b[label], {}
+        ms = plain_ms(lambda: ref.__setitem__(
+            "p", P.probe_v2b_ref(a, wt, **variant)))
+        err = max_abs_err(outs, ref["p"])
+        check(err == 0, f"probe_v2b {label}: kernel != plain version ({err})")
+        print(f"[probe] {card_str}: probe_v2b {label:44s} {ns:9.3f} ns/row "
+              f"(CUDA events, best of 3 windows of 20 launches, "
+              f"{P.V2B_ROWS} rows); plain {ms:.3f} ms; max_abs_err {err} over "
+              f"the output rows and the blocks and fill per tile row "
+              f"{outs[1][:, 0].tolist()} {outs[1][:, 1].tolist()}")
+        if variant.get("dma_out"):
+            # the refills' rows (16 KB a tile row each) and the tile in,
+            # the output and stat out
+            refills = int(((outs[1][:, 1] - P.WIN) // P.REFILL).sum().item())
+            n = P.V2B_ROWS * P.TILE[0] * P.TILE[1]
+            res["probe_v2b"] = dict(
+                ms=ns * P.V2B_ROWS / 1e6, plain_ms=ms, err=err,
+                bound=bound_ms(4 * (1024 + refills * P.REFILL * 128
+                                    + outs[0].numel() + outs[1].numel()),
+                               n * V2B_ROW_OPS[variant["ncarry"]]))
+    return res
+
+
+def phase_profile(streams: list[bytes], card_str: str) -> None:
+    """profile_e2e_decode on the main-path batch (4 x 1024 x 8 KB)."""
+    from brotli_tpu_torch.utils.profiling import phase_report, profile_e2e_decode
+
+    phases, summ = profile_e2e_decode(streams * GROUPS, "cuda", groups=GROUPS)
+    check(summ["err_lanes"] == 0, f"{summ['err_lanes']} lanes flagged")
+    for line in phase_report(phases, summ["bytes"]).splitlines():
+        print(f"[profile] {card_str}: {line}")
+    busy = summ["device_busy"]
+    top = sorted(summ["device_s_by_name"].items(), key=lambda kv: -kv[1])[:4]
+    top_s = "; ".join(f"{k.split('(')[0]} {v * 1e3:.4f} ms" for k, v in top)
+    print(f"[profile] {card_str}: device busy share "
+          f"{'not measured' if busy is None else f'{busy:.4f}'} of the "
+          f"profiled pass ({summ['profiled_window_s'] * 1e3:.3f} ms host "
+          f"clock; torch.profiler device time over it); kernels "
+          f"{summ['kernels_mbps']:.2f} MB/s, whole round trip "
+          f"{summ['e2e_mbps']:.2f} MB/s; top device time: {top_s}")
+
+
+def phase_entry() -> None:
+    """The port's entry(): the entropy kernel on a staged 32-stream batch."""
+    from brotli_tpu_torch.entry import entry
+    from brotli_tpu_torch.ops import decode2 as D
+
+    fn, args = entry()
+    tok, count, phase, _ = fn(*args)
+    torch.cuda.synchronize()
+    check(bool((phase[:32] == D.DONE).all()) and bool((count[:32] > 0).all()),
+          "entry(): a lane of the example batch did not decode")
+    print(f"[entry] entry() -> {fn.__name__} on {args[0].n_lanes} lanes "
+          f"({int((count > 0).sum())} streams), every stream DONE")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing run",
@@ -803,16 +917,18 @@ def main() -> int:
         return 1
     import brotli_tpu_torch  # noqa: F401  (fails outside a checkout)
 
-    check("jax" not in sys.modules, "the port imported jax")
+    check_no_reference_imports()
     t_run = time.perf_counter()
     card_str = card()
     print(f"[card] {card_str}")
     phase_build(card_str)
     errs = phase_kernel_vs_plain()
+    probes = phase_probes(card_str)
     data, streams = main_path_streams()
     launches = phase_main_path(data, streams)
     phase_far()
     times = phase_times(streams, card_str)
+    phase_profile(streams, card_str)
     enc_err = phase_enc_kernel_vs_plain()
     phase_enc_card_vs_cpu()
     enc_data = corpus(1024 * ENC_CHUNK)
@@ -828,33 +944,41 @@ def main() -> int:
     v3_times = phase_v3_times(v3_batch, card_str)
     del v3_batch
     phase_v3_full(card_str)
-    check("jax" not in sys.modules, "the port imported jax")
+    phase_entry()
+    check_no_reference_imports()
 
+    def row(name, source, replaces, n, err, ms, plain, bound):
+        return {"name": name, "route": "cuda",
+                "source": f"brotli_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": n, "max_abs_err": err,
+                "ms": ms, "plain_ms": plain, "bound_ms": bound[0],
+                "bound_by": bound[1], "library_ms": None}
+
+    pv2, pv2b = probes["probe_v2"], probes["probe_v2b"]
     kernels = [
-        {"name": "entropy_decode", "route": "cuda",
-         "source": "brotli_tpu_torch/csrc/decode2.cu",
-         "replaces": "brotli_tpu/ops/pallas_decode2.py:158",
-         "launches": launches["entropy"],
-         "max_abs_err": max(errs["entropy"], times["errs"]["entropy"]),
-         "ms": times["entropy_ms"], "plain_ms": times["plain_entropy_ms"]},
-        {"name": "resolve_tokens", "route": "cuda",
-         "source": "brotli_tpu_torch/csrc/resolve.cu",
-         "replaces": "brotli_tpu/ops/pallas_resolve.py:127",
-         "launches": launches["resolve"],
-         "max_abs_err": max(errs["resolve"], times["errs"]["resolve"]),
-         "ms": times["resolve_ms"], "plain_ms": times["plain_resolve_ms"]},
-        {"name": "pack_records", "route": "cuda",
-         "source": "brotli_tpu_torch/csrc/pack.cu",
-         "replaces": "brotli_tpu/ops/device_encode.py:689",
-         "launches": enc_launches["pack"],
-         "max_abs_err": max(enc_err, enc_times["err"], bench_err),
-         "ms": enc_times["pack_ms"], "plain_ms": enc_times["plain_pack_ms"]},
-        {"name": "decode3", "route": "cuda",
-         "source": "brotli_tpu_torch/csrc/decode3.cu",
-         "replaces": "brotli_tpu/ops/pallas_decode3.py:532",
-         "launches": v3_launches,
-         "max_abs_err": max(v3_err, v3_times["err"]),
-         "ms": v3_times["ms"], "plain_ms": v3_times["plain_ms"]},
+        row("entropy_decode", "decode2.cu",
+            "brotli_tpu/ops/pallas_decode2.py:158", launches["entropy"],
+            max(errs["entropy"], times["errs"]["entropy"]),
+            times["entropy_ms"], times["plain_entropy_ms"],
+            times["entropy_bound"]),
+        row("resolve_tokens", "resolve.cu",
+            "brotli_tpu/ops/pallas_resolve.py:127", launches["resolve"],
+            max(errs["resolve"], times["errs"]["resolve"]),
+            times["resolve_ms"], times["plain_resolve_ms"],
+            times["resolve_bound"]),
+        row("pack_records", "pack.cu", "brotli_tpu/ops/device_encode.py:689",
+            enc_launches["pack"], max(enc_err, enc_times["err"], bench_err),
+            enc_times["pack_ms"], enc_times["plain_pack_ms"],
+            enc_times["bound"]),
+        row("decode3", "decode3.cu", "brotli_tpu/ops/pallas_decode3.py:532",
+            v3_launches, max(v3_err, v3_times["err"]), v3_times["ms"],
+            v3_times["plain_ms"], v3_times["bound"]),
+        row("probe_v2", "probe.cu", "tools/probe_v2.py:15",
+            probes["launches"]["probe_v2"], pv2["err"], pv2["ms"],
+            pv2["plain_ms"], pv2["bound"]),
+        row("probe_v2b", "probe.cu", "tools/probe_v2b.py:17",
+            probes["launches"]["probe_v2b"], pv2b["err"], pv2b["ms"],
+            pv2b["plain_ms"], pv2b["bound"]),
     ]
     print(f"[wall] whole run {time.perf_counter() - t_run:.3f} s (host clock, "
           "builds included)")

@@ -349,7 +349,7 @@ def test_compound_dictionary_decodes():
         assert got == expected
         assert brotli_tpu_torch.fallback_stats()["lanes_fallback"] == before
     streams, _, kw = case("compound_overflow")
-    with pytest.raises(brotli_tpu.BrotliError):
+    with pytest.raises(brotli_tpu_torch.BrotliError):
         brotli_tpu_torch.decode_batch_v3(streams, device="cpu", **kw)
 
 

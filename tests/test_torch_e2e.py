@@ -112,7 +112,7 @@ def test_truncated_lane_goes_to_host_decoder():
     data = _source_text(2048, skip=4000)
     streams = list(encode_sharded(data, chunk_size=256, max_distance=496))
     streams[3] = streams[3][: len(streams[3]) // 2]
-    with pytest.raises(brotli_tpu.BrotliError):
+    with pytest.raises(brotli_tpu_torch.BrotliError):
         brotli_tpu_torch.decode_batch_device_e2e(streams, device="cpu")
 
 
