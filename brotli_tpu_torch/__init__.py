@@ -54,11 +54,13 @@ from .encode import Encoder
 from .encode import encode as host_encode
 from .encode.sharded import encode_sharded
 from .ops.decode2 import decode_batch_device_e2e, fallback_stats
-from .ops.decode3 import decode_batch_v3, decode_batch_v3_full
+from .ops.decode3 import (decode_batch_v3, decode_batch_v3_full,
+                          stage_dictionary)
 from .ops.device_encode import encode_device_batch, encode_fallback_stats
 from .parallel.shard import parallel_encode
 
 __all__ = ["BrotliError", "Encoder", "decode_batch_device_e2e",
            "decode_batch_v3", "decode_batch_v3_full", "encode_device_batch",
            "encode_fallback_stats", "encode_sharded", "fallback_stats",
-           "host_decode", "host_encode", "parallel_encode"]
+           "host_decode", "host_encode", "parallel_encode",
+           "stage_dictionary"]

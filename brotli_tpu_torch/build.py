@@ -40,7 +40,7 @@ NVCC_FLAGS = [
 ]
 NVCC_LINK_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-shared"]
 KERNEL_SOURCES = ["decode2.cu", "decode3.cu", "resolve.cu", "pack.cu",
-                  "probe.cu"]
+                  "parse.cu", "probe.cu"]
 HOST_FLAGS = ["-std=c++17", "-O2", "-fPIC"]
 HOST_LINK_FLAGS = ["-shared"]
 
@@ -55,7 +55,9 @@ _I = ctypes.c_int
 _DECODE2_ARGS = [_P] * 12 + [_I] * 9
 _DECODE3_ARGS = [_P] * 17 + [_I] * 9
 _RESOLVE_ARGS = [_P] * 5 + [_I, _I, ctypes.c_longlong]
-_PACK_ARGS = [_P] * 12 + [_I] * 9
+_PACK_ARGS = [_P] * 13 + [_I] * 9
+_PACK_SERIAL_ARGS = [_P] * 12 + [_I] * 9
+_PARSE_ARGS = [_P] * 6 + [_I] * 6
 _PROBE_V2_ARGS = [_P] * 3 + [_I] * 3
 _PROBE_V2B_ARGS = [_P] * 4 + [_I] * 8
 
@@ -145,6 +147,8 @@ def kernels_lib() -> ctypes.CDLL:
             "brotli_torch_decode3": _DECODE3_ARGS + [_P],
             "brotli_torch_resolve": _RESOLVE_ARGS + [_P],
             "brotli_torch_pack": _PACK_ARGS + [_P],
+            "brotli_torch_pack_serial": _PACK_SERIAL_ARGS + [_P],
+            "brotli_torch_parse": _PARSE_ARGS + [_P],
             "brotli_torch_probe_v2": _PROBE_V2_ARGS + [_P],
             "brotli_torch_probe_v2b": _PROBE_V2B_ARGS + [_P],
         })
@@ -165,6 +169,8 @@ def host_lib() -> ctypes.CDLL:
             "brotli_torch_decode3_host": _DECODE3_ARGS,
             "brotli_torch_resolve_host": _RESOLVE_ARGS,
             "brotli_torch_pack_host": _PACK_ARGS,
+            "brotli_torch_pack_serial_host": _PACK_SERIAL_ARGS,
+            "brotli_torch_parse_host": _PARSE_ARGS,
             "brotli_torch_probe_v2_host": _PROBE_V2_ARGS,
             "brotli_torch_probe_v2b_host": _PROBE_V2B_ARGS,
         })

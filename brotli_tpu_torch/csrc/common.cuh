@@ -17,6 +17,7 @@ using u8 = uint8_t;
 using u32 = uint32_t;
 using i32 = int32_t;
 using i64 = int64_t;
+using u64 = uint64_t;
 
 // Right funnel shift: 32 bits of the 64-bit value (hi:lo) starting at bit m,
 // m in [0, 31].  A plain `hi << (32 - m)` is undefined for m == 0, so that

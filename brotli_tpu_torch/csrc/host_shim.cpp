@@ -1,15 +1,17 @@
 // Host build of the kernels' per-lane logic (decode2.cuh, decode3.cuh,
-// resolve.cuh, pack.cuh, probe.cuh), compiled with g++ so the CPU tests can
-// hold the exact code the CUDA kernels run against the plain PyTorch
-// versions.  Test-only: the encode and decode paths never call it.  The
-// argument layouts are those of the CUDA entry points in decode2.cu,
-// decode3.cu, resolve.cu, pack.cu and probe.cu, without the stream.
+// resolve.cuh, pack.cuh, parse.cuh, probe.cuh), compiled with g++ so the
+// CPU tests can hold the exact code the CUDA kernels run against the plain
+// PyTorch versions.  Test-only: the encode and decode paths never call it.
+// The argument layouts are those of the CUDA entry points in decode2.cu,
+// decode3.cu, resolve.cu, pack.cu, parse.cu and probe.cu, without the
+// stream.
 #include <algorithm>
 #include <vector>
 
 #include "decode2.cuh"
 #include "decode3.cuh"
 #include "pack.cuh"
+#include "parse.cuh"
 #include "probe.cuh"
 #include "resolve.cuh"
 
@@ -96,36 +98,116 @@ extern "C" int brotli_torch_resolve_host(const void* tok, const void* count,
   return 0;
 }
 
-extern "C" int brotli_torch_pack_host(
+static void pack_host_lane(const PackTables& T, const PackParams& P,
+                           const void* rec0, const void* rec1,
+                           const void* grp, const void* init0,
+                           const void* initav, const void* sw,
+                           const void* stype, void* words, void* status,
+                           int lane) {
+  const i64 n = P.n_lanes;
+  const PackResult r = pack_lane(
+      T, P, (const i32*)rec0 + lane, (const i32*)rec1 + lane,
+      ((const i32*)grp)[lane], ((const i32*)init0)[lane],
+      ((const i32*)initav)[lane],
+      P.nbt > 1 ? (const i32*)sw + lane : nullptr,
+      P.nbt > 1 ? (const i32*)stype + lane : nullptr, (i32*)words + lane);
+  i32* st = (i32*)status;
+  st[0 * n + lane] = (i32)r.widx;
+  st[1 * n + lane] = (i32)r.avail;
+  st[2 * n + lane] = (i32)r.b0;
+  st[3 * n + lane] = (i32)r.b1;
+  st[4 * n + lane] = (i32)r.b2;
+  st[5 * n + lane] = (i32)r.ovf;
+}
+
+// The serial kernel of pack.cu: the row machine, lane by lane.
+extern "C" int brotli_torch_pack_serial_host(
     const void* rec0, const void* rec1, const void* tab, const void* cmap,
     const void* consts, const void* grp, const void* init0,
     const void* initav, const void* sw, const void* stype, void* words,
     void* status, int n_lanes, int rows, int n_groups, int tab_n, int cmap_n,
     int nt, int nbt, int pseg, int nseg) {
-  if (n_lanes <= 0 || rows < 0 || n_groups <= 0 || tab_n <= 0 ||
-      cmap_n < 128 || nt < 1 || pseg <= 0 || nseg <= 0 ||
-      (nbt > 1 && (sw == nullptr || stype == nullptr)))
+  if (!pack_args_ok(sw, stype, n_lanes, rows, n_groups, tab_n, cmap_n,
+                         nt, nbt, pseg, nseg))
+    return 1;
+  const PackTables T{(const i32*)tab, (const i32*)cmap, (const i32*)consts,
+                     tab_n, cmap_n, n_groups};
+  const PackParams P{nt, nbt, pseg, nseg, rows, n_lanes};
+  for (int lane = 0; lane < n_lanes; ++lane)
+    pack_host_lane(T, P, rec0, rec1, grp, init0, initav, sw, stype, words,
+                   status, lane);
+  return 0;
+}
+
+// The segmented kernel of pack.cu: its four passes in order, each over
+// every (segment, lane) or lane.  A word that pass 3 stores without an OR
+// must still be zero, or the segments overlap: the shim returns 2.
+extern "C" int brotli_torch_pack_host(
+    const void* rec0, const void* rec1, const void* tab, const void* cmap,
+    const void* consts, const void* grp, const void* init0,
+    const void* initav, const void* sw, const void* stype, void* words,
+    void* status, void* scratch, int n_lanes, int rows, int n_groups,
+    int tab_n, int cmap_n, int nt, int nbt, int pseg, int nseg) {
+  if (!pack_args_ok(sw, stype, n_lanes, rows, n_groups, tab_n, cmap_n,
+                         nt, nbt, pseg, nseg) ||
+      scratch == nullptr)
     return 1;
   const PackTables T{(const i32*)tab, (const i32*)cmap, (const i32*)consts,
                      tab_n, cmap_n, n_groups};
   const PackParams P{nt, nbt, pseg, nseg, rows, n_lanes};
   const i64 n = n_lanes;
+  const int nsegr = (rows + PACK_SEG - 1) / PACK_SEG;
+  const i64 plane = (i64)nsegr * n;
+  i32* cnt = (i32*)scratch;
+  u32* body = (u32*)words;
   i32* st = (i32*)status;
+  auto lane_sw = [&](int lane) {
+    return nbt > 1 ? (const i32*)sw + lane : nullptr;
+  };
+  auto lane_stype = [&](int lane) {
+    return nbt > 1 ? (const i32*)stype + lane : nullptr;
+  };
+  for (int g = 0; g < nsegr; ++g)
+    for (int lane = 0; lane < n_lanes; ++lane) {
+      const PackLaneCtx L = pack_lane_ctx(T, P, ((const i32*)grp)[lane]);
+      const PackSegCount c = pack_seg_count(
+          T, P, L, g * PACK_SEG, std::min(rows, (g + 1) * PACK_SEG),
+          (const i32*)rec0 + lane, (const i32*)rec1 + lane, lane_sw(lane),
+          lane_stype(lane));
+      cnt[g * n + lane] = c.bits;
+      cnt[plane + g * n + lane] = c.a;
+      cnt[2 * plane + g * n + lane] = c.t;
+    }
+  for (int lane = 0; lane < n_lanes; ++lane)
+    pack_scan_lane(cnt + lane, nsegr, n, rows, ((const i32*)init0)[lane],
+                   ((const i32*)initav)[lane], st + lane, (i32*)words + lane);
+  bool overlap = false;
+  for (int g = 0; g < nsegr; ++g)
+    for (int lane = 0; lane < n_lanes; ++lane) {
+      const i32 widx = st[lane];
+      const PackLaneCtx L = pack_lane_ctx(T, P, ((const i32*)grp)[lane]);
+      const bool ovf = pack_seg_emit(
+          T, P, L, g * PACK_SEG, std::min(rows, (g + 1) * PACK_SEG),
+          (const i32*)rec0 + lane, (const i32*)rec1 + lane, lane_sw(lane),
+          lane_stype(lane), cnt[g * n + lane], cnt[plane + g * n + lane],
+          [&](i32 k, u32 v, bool shared) {
+            if (k < widx) {
+              u32& w = body[(i64)k * n + lane];
+              overlap |= !shared && w != 0;
+              w = shared ? w | v : v;
+            } else if (k - widx < 3) {
+              ((u32*)st)[(2 + k - widx) * n + lane] |= v;
+            }
+          });
+      if (ovf) st[5 * n + lane] = 1;
+    }
   for (int lane = 0; lane < n_lanes; ++lane) {
-    const PackResult r = pack_lane(
-        T, P, (const i32*)rec0 + lane, (const i32*)rec1 + lane,
-        ((const i32*)grp)[lane], ((const i32*)init0)[lane],
-        ((const i32*)initav)[lane],
-        nbt > 1 ? (const i32*)sw + lane : nullptr,
-        nbt > 1 ? (const i32*)stype + lane : nullptr, (i32*)words + lane);
-    st[0 * n + lane] = (i32)r.widx;
-    st[1 * n + lane] = (i32)r.avail;
-    st[2 * n + lane] = (i32)r.b0;
-    st[3 * n + lane] = (i32)r.b1;
-    st[4 * n + lane] = (i32)r.b2;
-    st[5 * n + lane] = (i32)r.ovf;
+    if (st[5 * n + lane] == 0) continue;
+    for (int r = 0; r < rows; ++r) ((i32*)words)[(i64)r * n + lane] = 0;
+    pack_host_lane(T, P, rec0, rec1, grp, init0, initav, sw, stype, words,
+                   status, lane);
   }
-  return 0;
+  return overlap ? 2 : 0;
 }
 
 template <int LEVEL>
@@ -146,6 +228,54 @@ static void probe_v2_host(const i32* a, i32* carry, u32* staging, int blocks,
     carry[2 * PROBE_TILE + e] = (i32)c.b2;
     carry[3 * PROBE_TILE + e] = c.q;
   }
+}
+
+// The warp of csrc/parse.cu is a loop here: the gate for each position of
+// a window into bit masks, then the same window walk.
+extern "C" int brotli_torch_parse_host(const void* mlen, const void* mdist,
+                                       const void* n_valid, void* is_cs,
+                                       void* is_lit, void* dcode, int n_lanes,
+                                       int n, int lazy0, int lazy1,
+                                       int min_gate, int sms) {
+  (void)sms;
+  if (n_lanes <= 0 || n <= 0) return 1;
+  const ParseKnobs K{lazy0, lazy1, min_gate};
+  std::vector<i32> sc(n + 2);
+  for (int lane = 0; lane < n_lanes; ++lane) {
+    const i64 row = (i64)lane * n;
+    const i32* ml = (const i32*)mlen + row;
+    const i32* md = (const i32*)mdist + row;
+    u8* cs = (u8*)is_cs + row;
+    u8* lit = (u8*)is_lit + row;
+    i32* dc = (i32*)dcode + row;
+    const i32 nv = ((const i32*)n_valid)[lane];
+    for (int p = 0; p < n; ++p) sc[p] = parse_score(ml[p], md[p]);
+    sc[n] = sc[n + 1] = 0;
+    ParseLane s = parse_lane_init();
+    for (int base = 0; base < n; base += PARSE_W) {
+      const int w_n = std::min(PARSE_W, n - base);
+      u32 take = 0, in_chunk = 0;
+      for (int i = 0; i < w_n; ++i) {
+        const int p = base + i;
+        take |= (u32)parse_take(K, ml[p], sc[p], sc[p + 1], sc[p + 2], p, nv)
+                << i;
+        in_chunk |= (u32)(p < nv) << i;
+        dc[p] = -1;
+      }
+      const ParseWindow w = parse_window(
+          s, base, take, in_chunk,
+          [&](int i, i32& len, i32& d) {
+            len = ml[base + i];
+            d = md[base + i];
+          },
+          [&](int i, i32 code) { dc[base + i] = code; });
+      for (int i = 0; i < w_n; ++i) {
+        cs[base + i] = (u8)((w.cs >> i) & 1u);
+        lit[base + i] = (u8)((w.lit >> i) & 1u);
+      }
+    }
+  }
+  return 0;
 }
 
 extern "C" int brotli_torch_probe_v2_host(const void* a, void* carry,

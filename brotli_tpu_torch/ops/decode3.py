@@ -155,6 +155,33 @@ def _shared_tables() -> dict:
     }
 
 
+def stage_dictionary(device: torch.device | str = "cuda") -> torch.Tensor:
+    """The static dictionary in the v3 kernel's layout (the `dict` field of
+    V3TorchBatch: uint8, padded to whole 512-byte chunks) on `device`.
+    Stage it once and pass it to the decode calls as `dict_dev`: they then
+    upload no dictionary.  The one-device counterpart of
+    brotli_tpu/parallel/mesh.py broadcast_dictionary_chunks."""
+    return torch.from_numpy(_shared_tables()["dict"].copy()).to(
+        resolve_device(device))
+
+
+def _check_dict_dev(dict_dev, dev: torch.device) -> None:
+    """dict_dev must be what stage_dictionary(dev) makes."""
+    want = _shared_tables()["dict"].shape
+    if not isinstance(dict_dev, torch.Tensor):
+        raise TypeError(f"dict_dev must be a tensor, got {type(dict_dev)}")
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    if dict_dev.device != dev:
+        raise ValueError(f"dict_dev is on {dict_dev.device}, the batch on "
+                         f"{dev}")
+    if dict_dev.dtype != torch.uint8 or tuple(dict_dev.shape) != want:
+        raise ValueError(f"dict_dev: want uint8 {want}, got {dict_dev.dtype} "
+                         f"{tuple(dict_dev.shape)}")
+    if not dict_dev.is_contiguous():
+        raise ValueError("dict_dev must be contiguous")
+
+
 def group_config(batch: V3Batch) -> np.ndarray:
     """(G, NCFG) int32: each group's GroupCfg and its table offsets."""
     cfg = np.zeros((batch.groups, NCFG), np.int32)
@@ -172,15 +199,18 @@ def group_config(batch: V3Batch) -> np.ndarray:
 
 
 def batch_to_torch_v3(batch: V3Batch, device: torch.device | str,
-                      custom_dictionary=None) -> V3TorchBatch:
+                      custom_dictionary=None, dict_dev=None) -> V3TorchBatch:
     """The JAX package's staged inputs (numpy) as the port's tensors.
 
     Tables lose the TPU's sublane replication, the per-group GroupCfg (baked
     into the JAX kernel at trace time) becomes a config row with the
     group's table offsets, the per-lane scalars come out of the `scal`
     rows, and the history prefix is each lane's earlier output,
-    right-aligned in `hrb` bytes."""
+    right-aligned in `hrb` bytes.  `dict_dev` (from stage_dictionary) is
+    used as the static dictionary in place of an upload."""
     dev = resolve_device(device)
+    if dict_dev is not None:
+        _check_dict_dev(dict_dev, dev)
     G = batch.groups
     n = G * NSTREAM
     sh = _shared_tables()
@@ -209,7 +239,8 @@ def batch_to_torch_v3(batch: V3Batch, device: torch.device | str,
         dist=put(_flat(batch.dist_t)), bsw=put(_flat(batch.bsw_t)),
         cmap=put(_flat(batch.cmap_t)), dx=put(_flat(batch.dx_t)),
         consts=put(sh["consts"]), lut=put(sh["lut"]), tfm=put(sh["tfm"]),
-        dict=put(sh["dict"]), tfs=put(sh["tfs"]), cdict=put(cdict),
+        dict=put(sh["dict"]) if dict_dev is None else dict_dev,
+        tfs=put(sh["tfs"]), cdict=put(cdict),
         cfg=put(cfg), scal=put(scal),
         hist=None if hist is None else put(hist),
         cfg_host=cfg, groups=G, out_cap=max(16, -(-max_mlen // 16) * 16),
@@ -783,14 +814,15 @@ def decode3_ref(tb: V3TorchBatch, use_dict: bool = True):
 # ---------------------------------------------------------------------------
 
 def run_batch_v3(batch: V3Batch, device: torch.device | str,
-                 use_dict: bool = True, custom_dictionary=None):
+                 use_dict: bool = True, custom_dictionary=None,
+                 dict_dev=None):
     """Stage `batch` on `device` and decode it (counterpart of the
     reference's staged_v3 + run_batch_v3).
 
     Returns (out (n_lanes, out_cap) uint8, status (16, n_lanes) int32) as
     device tensors: lane l's metablock is out[l, :mlen], its status rows
     err, r_lane, phase, mbl, widx, avail, r0..r3, then zeros."""
-    tb = batch_to_torch_v3(batch, device, custom_dictionary)
+    tb = batch_to_torch_v3(batch, device, custom_dictionary, dict_dev)
     out, status = decode3(tb, use_dict)
     return out[:, tb.hrb:], status
 
@@ -812,21 +844,26 @@ def _lanes(batch: V3Batch, out: torch.Tensor, status: torch.Tensor):
 def decode_batch_v3(streams: list[bytes], *,
                     device: torch.device | str = "cuda",
                     use_dict: bool = True, max_groups: int = 4,
-                    custom_dictionary=None) -> list[bytes]:
+                    custom_dictionary=None, dict_dev=None) -> list[bytes]:
     """Full-format decode of single-metablock streams on `device`.
 
     Any stream of one compressed metablock is device-eligible whatever its
     entropy layout (context maps, block switching, tree groups, static and
     compound dictionary).  Flagged lanes re-decode on the host; a batch the
     preflight refuses (another stream shape, more than `max_groups` table
-    groups) is host-decoded whole.  Both count in fallback_stats()."""
+    groups) is host-decoded whole.  Both count in fallback_stats().
+    `dict_dev`: the static dictionary already on `device`
+    (stage_dictionary), so that the call uploads none."""
     dev = resolve_device(device)
+    if dict_dev is not None:
+        _check_dict_dev(dict_dev, dev)
     batch = preflight_v3(streams, max_groups=max_groups)
     if batch is None:
         _note_fallbacks(len(streams), len(streams))
         return [host_decode(s, custom_dictionary=custom_dictionary)
                 for s in streams]
-    out, status = run_batch_v3(batch, dev, use_dict, custom_dictionary)
+    out, status = run_batch_v3(batch, dev, use_dict, custom_dictionary,
+                               dict_dev)
     st, raw = _lanes(batch, out, status)
     results: list[bytes | None] = [None] * batch.n_streams
     n_fallback = 0
@@ -847,7 +884,8 @@ def decode_batch_v3(streams: list[bytes], *,
 def decode_batch_v3_full(streams: list[bytes], *,
                          device: torch.device | str = "cuda",
                          use_dict: bool = True, max_groups: int = 4,
-                         custom_dictionary=None) -> list[bytes]:
+                         custom_dictionary=None,
+                         dict_dev=None) -> list[bytes]:
     """Decode arbitrary (multi-metablock) Brotli streams on `device`.
 
     The host walks each stream's metablock headers: metadata blocks are
@@ -858,8 +896,11 @@ def decode_batch_v3_full(streams: list[bytes], *,
     signature and decoded in rounds, one kernel launch a round; the status
     rows give the exact end bit (32*widx - avail) from which the host reads
     the next header.  Streams beyond the _FULL_* caps, or lanes that flag,
-    are decoded on the host and counted in fallback_stats()."""
+    are decoded on the host and counted in fallback_stats().  `dict_dev`
+    as for decode_batch_v3: every round reads that one dictionary."""
     dev = resolve_device(device)
+    if dict_dev is not None:
+        _check_dict_dev(dict_dev, dev)
     n = len(streams)
     outs: list[bytearray] = [bytearray() for _ in range(n)]
     bitpos = [0] * n
@@ -934,7 +975,8 @@ def decode_batch_v3_full(streams: list[bytes], *,
                 failed[e.idx] = True
                 live[e.idx] = False
             break
-        out, status = run_batch_v3(batch, dev, use_dict, custom_dictionary)
+        out, status = run_batch_v3(batch, dev, use_dict, custom_dictionary,
+                                   dict_dev)
         st, raw = _lanes(batch, out, status)
         by_idx = {e.idx: e for e in entries}
         for slot in range(batch.groups * NSTREAM):

@@ -13,8 +13,9 @@ Stages, per batch of B_LANES chunks of up to CHUNK_N bytes:
    `chain_depth` same-hash neighbours, byte runs and run extension by
    doubling, clamped to the chunk;
 2. `greedy_parse`: score gate and lazy look-ahead, then the sequential
-   next-free and distance-ring walk, a Python loop over positions that is
-   vectorised over lanes (the JAX `lax.scan`);
+   next-free and distance-ring walk (the JAX `lax.scan`): the CUDA kernel
+   csrc/parse.cu on CUDA tensors (`greedy_parse_ref`, a Python loop over
+   positions vectorised over lanes, on CPU tensors);
 3. `build_records`: symbol records already in stream order;
 4. `segment_stats` (block_types > 1): k-means and Viterbi block typing;
 5. `group_hist`: a strided record sample binned by one bincount;
@@ -74,8 +75,12 @@ from .encode_host import (
     _tab_chunks,
 )
 
-# Launches of the CUDA pack kernel, counted by the wrapper where it launches.
+# Launches of the CUDA pack kernels (the segmented one, whose passes count
+# once a call, and the serial one) and of the parse kernel, counted by their
+# wrappers where they launch.
 KERNEL_LAUNCHES = 0
+SERIAL_PACK_LAUNCHES = 0
+PARSE_LAUNCHES = 0
 
 _M32 = 0xFFFFFFFF
 _I32 = torch.int32
@@ -275,12 +280,86 @@ def find_matches(data_u8: torch.Tensor, n_valid: torch.Tensor,
 # stage 2: greedy parse
 # ---------------------------------------------------------------------------
 
+def _check_parse(mlen, mdist, n_valid) -> None:
+    if mlen.dim() != 2 or not mlen.shape[1]:
+        raise ValueError(f"mlen: want int32 (B, N), got {tuple(mlen.shape)}")
+    B = mlen.shape[0]
+    for name, t, shape in (("mlen", mlen, tuple(mlen.shape)),
+                           ("mdist", mdist, tuple(mlen.shape)),
+                           ("n_valid", n_valid, (B,))):
+        if tuple(t.shape) != shape or t.dtype != _I32:
+            raise ValueError(f"{name}: want int32 {shape}, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.device != mlen.device:
+            raise ValueError(f"{name} is on {t.device}, mlen on {mlen.device}")
+
+
+def _parse_c_args(mlen, mdist, n_valid, out, lazy, min_gate, sms) -> list:
+    """The argument list of brotli_torch_parse (and its host shim)."""
+    B, N = mlen.shape
+    return ([t.data_ptr() for t in (mlen, mdist, n_valid, *out)]
+            + [B, N, int(lazy[0]), int(lazy[1]), int(min_gate), sms])
+
+
+def _alloc_parse(mlen):
+    return (torch.empty(mlen.shape, dtype=torch.bool, device=mlen.device),
+            torch.empty(mlen.shape, dtype=torch.bool, device=mlen.device),
+            torch.empty(mlen.shape, dtype=_I32, device=mlen.device))
+
+
 def greedy_parse(mlen: torch.Tensor, mdist: torch.Tensor,
                  n_valid: torch.Tensor, lazy=(105, 175), min_gate: int = 9):
-    """Returns (is_cs, is_lit, dcode_short) (B, N); see
-    device_encode.greedy_parse.  The gate and the look-ahead are whole-array
-    ops; the next-free and distance-ring walk is a loop over positions,
-    each step a few ops on (B,) tensors."""
+    """Returns (is_cs, is_lit, dcode_short) (B, N) bool, bool, int32; see
+    device_encode.greedy_parse.  mlen, mdist (B, N) and n_valid (B,) are
+    int32.  CPU tensors take greedy_parse_ref; CUDA tensors launch
+    csrc/parse.cu, one warp per lane."""
+    global PARSE_LAUNCHES
+    _check_parse(mlen, mdist, n_valid)
+    if mlen.device.type == "cpu":
+        return greedy_parse_ref(mlen, mdist, n_valid, lazy, min_gate)
+    if mlen.device.type != "cuda":
+        raise ValueError(f"unsupported device {mlen.device}")
+    from ..build import kernels_lib
+
+    out = _alloc_parse(mlen)
+    sms = torch.cuda.get_device_properties(mlen.device).multi_processor_count
+    with torch.cuda.device(mlen.device):
+        rc = kernels_lib().brotli_torch_parse(
+            *_parse_c_args(mlen, mdist, n_valid, out, lazy, min_gate, sms),
+            torch.cuda.current_stream(mlen.device).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"parse kernel launch failed: cudaError {rc}")
+    PARSE_LAUNCHES += 1
+    return out
+
+
+def greedy_parse_host(mlen: torch.Tensor, mdist: torch.Tensor,
+                      n_valid: torch.Tensor, lazy=(105, 175),
+                      min_gate: int = 9):
+    """csrc/parse.cuh's window walk built for the CPU (build.host_lib): for
+    the tests, which hold it against greedy_parse_ref and JAX."""
+    from ..build import host_lib
+
+    _check_parse(mlen, mdist, n_valid)
+    if mlen.device.type != "cpu":
+        raise ValueError("the host shim takes CPU tensors")
+    out = _alloc_parse(mlen)
+    if host_lib().brotli_torch_parse_host(
+            *_parse_c_args(mlen, mdist, n_valid, out, lazy, min_gate, 0)):
+        raise ValueError("host shim refused the batch")
+    return out
+
+
+def greedy_parse_ref(mlen: torch.Tensor, mdist: torch.Tensor,
+                     n_valid: torch.Tensor, lazy=(105, 175),
+                     min_gate: int = 9):
+    """Plain PyTorch version of greedy_parse, on the inputs' device.  The
+    gate and the look-ahead are whole-array ops; the next-free and
+    distance-ring walk is a loop over positions, each step a few ops on
+    (B,) tensors."""
     B, N = mlen.shape
     dev = mlen.device
     pos = torch.arange(N, dtype=_I32, device=dev)[None, :]
@@ -651,22 +730,50 @@ def _check_pack(pb: PackBatch) -> None:
         raise ValueError("nt, pseg and nseg must be >= 1")
 
 
+PACK_SEG = 256   # record rows per segment of the segmented kernel (pack.cuh)
+
+
 def _alloc_pack(pb: PackBatch):
     words = torch.zeros((pb.rows, pb.n_lanes), dtype=_I32, device=pb.device)
     status = torch.empty((6, pb.n_lanes), dtype=_I32, device=pb.device)
     return words, status
 
 
-def _pack_c_args(pb: PackBatch, words, status) -> list:
-    """The argument list of brotli_torch_pack (and its host shim)."""
+def _alloc_scratch(pb: PackBatch) -> torch.Tensor:
+    """The segmented kernel's (3, segments, n_lanes) counts."""
+    nsegr = -(-pb.rows // PACK_SEG)
+    return torch.empty((3, nsegr, pb.n_lanes), dtype=_I32, device=pb.device)
+
+
+def _pack_c_args(pb: PackBatch, words, status, scratch=None) -> list:
+    """The argument list of brotli_torch_pack (with the scratch) and
+    brotli_torch_pack_serial (without), and of their host shims."""
     def ptr(t):
         return t.data_ptr() if t is not None else None
 
+    bufs = (words, status) if scratch is None else (words, status, scratch)
     return ([ptr(t) for t in (pb.rec0, pb.rec1, pb.tab, pb.cmap, pb.consts,
                               pb.grp, pb.init0, pb.initav, pb.sw, pb.stype,
-                              words, status)]
+                              *bufs)]
             + [pb.n_lanes, pb.rows, pb.tab.shape[0], pb.tab.shape[1],
                pb.cmap.shape[1], pb.nt, pb.nbt, pb.pseg, pb.nseg])
+
+
+def _launch_pack(pb: PackBatch, serial: bool):
+    from ..build import kernels_lib
+
+    words, status = _alloc_pack(pb)
+    lib = kernels_lib()
+    # the scratch is freed after the launch: the caching allocator hands it
+    # out again only to work queued behind the kernel on this stream
+    scratch = None if serial else _alloc_scratch(pb)
+    fn = lib.brotli_torch_pack_serial if serial else lib.brotli_torch_pack
+    args = _pack_c_args(pb, words, status, scratch)
+    with torch.cuda.device(pb.device):
+        rc = fn(*args, torch.cuda.current_stream(pb.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"pack kernel launch failed: cudaError {rc}")
+    return words, status
 
 
 def pack_records(pb: PackBatch):
@@ -676,38 +783,51 @@ def pack_records(pb: PackBatch):
     batch's device: lane l's body words are words[:widx[l], l], compact, and
     zero below; status rows are widx, avail (bits left in the buffer), the
     buffer's three low limbs and the overflow flag.  CPU tensors take
-    pack_records_ref; CUDA tensors launch csrc/pack.cu."""
+    pack_records_ref; CUDA tensors launch the segmented kernel of
+    csrc/pack.cu (four passes, one count)."""
     global KERNEL_LAUNCHES
     _check_pack(pb)
     if pb.device.type == "cpu":
         return pack_records_ref(pb)
     if pb.device.type != "cuda":
         raise ValueError(f"unsupported device {pb.device}")
-    from ..build import kernels_lib
-
-    words, status = _alloc_pack(pb)
-    with torch.cuda.device(pb.device):
-        rc = kernels_lib().brotli_torch_pack(
-            *_pack_c_args(pb, words, status),
-            torch.cuda.current_stream(pb.device).cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"pack kernel launch failed: cudaError {rc}")
+    out = _launch_pack(pb, serial=False)
     KERNEL_LAUNCHES += 1
-    return words, status
+    return out
 
 
-def pack_records_host(pb: PackBatch):
-    """csrc/pack.cuh's per-lane code built for the CPU (build.host_lib): for
-    the tests, which hold it against pack_records_ref."""
+def pack_records_serial(pb: PackBatch):
+    """pack_records through the serial kernel of csrc/pack.cu (one thread a
+    lane runs the row machine), on CUDA tensors only: the yardstick the
+    segmented kernel is timed against."""
+    global SERIAL_PACK_LAUNCHES
+    _check_pack(pb)
+    if pb.device.type != "cuda":
+        raise ValueError(f"the serial pack kernel takes CUDA tensors, "
+                         f"not {pb.device}")
+    out = _launch_pack(pb, serial=True)
+    SERIAL_PACK_LAUNCHES += 1
+    return out
+
+
+def pack_records_host(pb: PackBatch, serial: bool = False):
+    """csrc/pack.cuh's code built for the CPU (build.host_lib): the
+    segmented kernel's four passes, or with `serial` the row machine of the
+    serial kernel; for the tests, which hold both against
+    pack_records_ref."""
     from ..build import host_lib
 
     _check_pack(pb)
     if pb.device.type != "cpu":
         raise ValueError("the host shim takes CPU tensors")
     words, status = _alloc_pack(pb)
-    if host_lib().brotli_torch_pack_host(*_pack_c_args(pb, words, status)):
-        raise ValueError("host shim refused the batch")
+    lib = host_lib()
+    scratch = None if serial else _alloc_scratch(pb)
+    fn = (lib.brotli_torch_pack_serial_host if serial
+          else lib.brotli_torch_pack_host)
+    rc = fn(*_pack_c_args(pb, words, status, scratch))
+    if rc:
+        raise ValueError(f"host shim refused the batch ({rc})")
     return words, status
 
 
@@ -822,6 +942,146 @@ def pack_records_ref(pb: PackBatch):
         ovf = ovf | (avail > 80).to(_I64)
     status = torch.stack([widx, avail, b[0], b[1], b[2], ovf])
     return words[: rows * n].reshape(rows, n), _wrap32(status)
+
+
+def _pack_pieces(pb: PackBatch, r_lo: int, r_hi: int):
+    """What rows [r_lo, r_hi) of every lane append, as four (value, bit
+    count) pairs of int64 (r_hi - r_lo, n_lanes) tensors, in order: the
+    block-switch word, the symbol code, extra 1, extra 2.  The counts are
+    pack_append's (nb & 63) and the values are masked to them."""
+    dev = pb.device
+    nt, nbt = pb.nt, pb.nbt
+    G, tab_n = pb.tab.shape
+    cmap_n = pb.cmap.shape[1]
+    tab = pb.tab.reshape(-1).to(_I64)
+    cmap = pb.cmap.reshape(-1).to(_I64)
+    consts = pb.consts.to(_I64)
+    grpv = pb.grp.to(_I64)[None, :]
+    grp = grpv & 0xFF if nbt > 1 else grpv
+    grp_ok = (grp >= 0) & (grp < G)
+    cm_base = torch.where(grp_ok, grp, 0) * cmap_n
+    r0 = pb.rec0[r_lo:r_hi].to(_I64)
+    r1 = pb.rec1[r_lo:r_hi].to(_I64)
+    kind = (r0 >> 28) & 0xF
+    code = r0 & 0x3FFF
+    is_cmd, is_dist, live = kind == K_CMD, kind == K_DIST, kind != K_PAD
+    ctx_u, ctx_s = (r0 >> 14) & 0x3F, (r0 >> 20) & 0x3F
+    r = torch.arange(r_lo, r_hi, device=dev)
+    seg = ((r - 1).clamp(min=0) // pb.pseg).clamp(max=pb.nseg - 1)
+    if nbt > 1:
+        btype = pb.stype[seg].to(_I64)
+        cidx = btype * 64 + torch.where(((grpv >> 8) & 1) > 0, ctx_s, ctx_u)
+        ok = grp_ok & (cidx >= 0) & (cidx < cmap_n)
+        tree = torch.where(ok, cmap[cm_base + cidx.clamp(0, cmap_n - 1)], 0)
+    elif nt > 1:
+        signed = grp_ok & (cmap[cm_base + 127] > 0)
+        tree = torch.where(grp_ok, cmap[cm_base + (torch.where(
+            signed, ctx_s, ctx_u) & 127)], 0)
+    else:
+        tree = torch.zeros_like(code)
+    lit_idx = tree * 256 + (code & 0xFF)
+    idx = torch.where(live, grp * tab_n + torch.where(
+        is_cmd, nt * 256 + code,
+        torch.where(is_dist, nt * 256 + 704 + code, lit_idx)), 0)
+    in_tab = (idx >= 0) & (idx < G * tab_n)
+    ent = torch.where(in_tab, tab[idx.clamp(0, G * tab_n - 1)], 0)
+    cell = code >> 6
+    s2 = 2 * torch.where(cell < 2, cell, cell - 2)
+    ins_hi = torch.where(s2 < 32, 0x29850 >> s2.clamp(0, 31), 0) & 3
+    cp_hi = torch.where(s2 < 32, 0x26244 >> s2.clamp(0, 31), 0) & 3
+    zero = torch.zeros_like(code)
+    pieces = [
+        (zero, zero),
+        (ent & 0xFFFF, torch.where(live, ent >> 16, 0)),
+        (torch.where(is_cmd, r1 & 0xFFFF, torch.where(is_dist, r1 & _M32, 0)),
+         torch.where(is_cmd, consts[(ins_hi * 8 + ((code >> 3) & 7)) & 127],
+                     torch.where(is_dist & (code >= 16),
+                                 ((code - 16) >> 1) + 1, 0))),
+        (torch.where(is_cmd, (r1 >> 16) & 0xFFFF, 0),
+         torch.where(is_cmd, consts[(cp_hi * 8 + (code & 7) + 64) & 127], 0)),
+    ]
+    if nbt > 1:
+        sww = pb.sw[seg].to(_I64) & _M32
+        pieces[0] = (sww & 0x07FFFFFF,
+                     torch.where(((r0 >> 26) & 1) > 0, sww >> 27, 0))
+    out = []
+    for v, nb in pieces:
+        nbu = nb & 63
+        out.append((v & torch.where(nbu >= 32, _M32,
+                                    (1 << nbu.clamp(max=31)) - 1), nbu))
+    return out
+
+
+def pack_records_scan(pb: PackBatch, chunk: int = 4096):
+    """pack_records as a scan over rows, in plain PyTorch: a cross-check of
+    the segmented kernel's formulation (csrc/pack.cuh) against the row
+    machine pack_records_ref, which stays the yardstick.
+
+    With S_r = initav + the bits of rows 0..r and F_r = S_r >> 5, a lane
+    whose buffer never overflows has emitted W_r = r + min(1, min_{j<=r}
+    (F_j - j)) words through row r, and those words are the bit stream's:
+    init0, then every row's pieces from bit initav.  So widx = W_last, avail
+    = S_last - 32 widx, the limbs are the stream's words from widx on, and
+    ovf is set where some S_r - 32 W_r > 80.  Lanes with ovf drop bits as
+    only the row machine does, so they are packed by pack_records_ref.
+    Rows are taken `chunk` at a time."""
+    _check_pack(pb)
+    dev = pb.device
+    n, rows = pb.n_lanes, pb.rows
+    lane = torch.arange(n, dtype=_I64, device=dev)
+    nbits = torch.zeros((rows, n), dtype=_I64, device=dev)
+    for lo in range(0, rows, chunk):
+        hi = min(rows, lo + chunk)
+        nbits[lo:hi] = sum(nb for _, nb in _pack_pieces(pb, lo, hi))
+    initav = pb.initav.to(_I64) & _M32
+    S = initav[None, :] + torch.cumsum(nbits, dim=0)
+    r = torch.arange(rows, dtype=_I64, device=dev)[:, None]
+    M = torch.cummin((S >> 5) - r, dim=0).values
+    W = r + M.clamp(max=1)
+    if rows:
+        widx, s_last = W[-1], S[-1]
+        ovf = ((S - 32 * W) > 80).any(dim=0)
+    else:
+        widx, s_last = torch.zeros_like(initav), initav
+        ovf = torch.zeros(n, dtype=torch.bool, device=dev)
+
+    # the stream's words, lane-major, wide enough for the rows' words, the
+    # limbs after widx (<= rows) and each piece's second word; pieces' bits
+    # are disjoint, so adding them ORs them
+    n_words = max(rows, int(s_last.max().item()) // 32 if n else 0) + 3
+    stream = torch.zeros(n * n_words, dtype=_I64, device=dev)
+    base = lane * n_words
+    for lo in range(0, rows, chunk):
+        hi = min(rows, lo + chunk)
+        off = S[lo:hi] - nbits[lo:hi]   # each row's first bit
+        for v, nbu in _pack_pieces(pb, lo, hi):
+            k, sh = off >> 5, off & 31
+            stream.index_add_(0, (base + k).reshape(-1),
+                              ((v << sh) & _M32).reshape(-1))
+            stream.index_add_(0, (base + k + 1).reshape(-1), torch.where(
+                sh > 0, v >> ((32 - sh) & 31), 0).reshape(-1))
+            off = off + nbu
+    stream = stream.reshape(n, n_words)
+    stream[:, 0] |= pb.init0.to(_I64) & _M32
+    col = torch.arange(rows, dtype=_I64, device=dev)[:, None]
+    words = torch.where(col < widx[None, :], stream.t()[:rows], 0)
+    limbs = torch.gather(stream, 1, widx[:, None] + torch.arange(
+        3, device=dev)[None, :]).t()
+    status = torch.stack([widx, s_last - 32 * widx, limbs[0], limbs[1],
+                          limbs[2], ovf.to(_I64)])
+    words, status = _wrap32(words), _wrap32(status)
+    if bool(ovf.any()):
+        sel = ovf.nonzero().reshape(-1)
+
+        def cols(t):
+            return None if t is None else t[:, sel].contiguous()
+
+        sub = PackBatch(**{**pb.__dict__, "rec0": cols(pb.rec0),
+                           "rec1": cols(pb.rec1), "sw": cols(pb.sw),
+                           "stype": cols(pb.stype), "grp": pb.grp[sel],
+                           "init0": pb.init0[sel], "initav": pb.initav[sel]})
+        words[:, sel], status[:, sel] = pack_records_ref(sub)
+    return words, status
 
 
 # ---------------------------------------------------------------------------

@@ -15,49 +15,58 @@ Phases, in order; any failure raises and the exit code is non-zero:
    reference's resolve ring flags these) decode with no fallback;
 5. times with CUDA events: each kernel on the staged main-path batch and
    its plain PyTorch version at the same shape;
-6. enc kernel == plain version on the card, bit for bit (words, widx,
-   avail, tail limbs, ovf), 1024 x 2 KB, for the three literal-tree
-   branches (one tree; context-mapped trees in two table groups; block
-   types), then the whole encode of that batch on the card against the
-   same encode on the CPU, stream for stream, per branch;
+6. enc kernels == plain versions on the card, bit for bit: both pack
+   kernels (the segmented one and the serial one; words, widx, avail, tail
+   limbs, ovf), 1024 x 2 KB, for the three literal-tree branches (one
+   tree; context-mapped trees in two table groups; block types), and on
+   1024 lanes of random records, half of which overflow the buffer; then
+   the whole encode of the 2 KB batch on the card against the same encode
+   on the CPU, stream for stream, per branch;
 7. enc main path -- encode_device_batch(device="cuda") of 1024 x 32 KB =
    33.6 MB at the default knobs, decoded back through
    decode_batch_device_e2e(device="cuda"): equal to the input, no host
-   fallback on either side, all three kernels launched; CUDA events around
-   each stage inside that one encode;
-8. enc times -- the pack kernel on the main path's records, and its plain
-   version against the main path's kernel output;
-9. enc bench config -- the reference bench's encode setting at the same
-   shape: one pack launch counted, every stream decodes to its chunk
-   through decode_batch_v3(device="cuda", max_groups=8) with no fallback,
-   no ovf lane, ratio, stage times, and the plain pack against the kernel
-   bit for bit at the widest table indexing (8 groups x 8 trees);
-10. v3 kernel == plain version on the card, bit for bit over the bytes and
+   fallback on either side, all four kernels launched (parse and pack once
+   each); CUDA events around each stage inside that one encode;
+8. parse kernel == plain version on the card, bit for bit (is_cs, is_lit,
+   dcode_short): 1024 x 2 KB at both lazy/gate knob sets over the matches
+   of three match-finder settings, then the main encode's shape and knobs
+   once, with the kernel's time;
+9. enc times -- the segmented and the serial pack kernel on the main
+   path's records in turns, and the plain version against the main path's
+   kernel output and the serial kernel's;
+10. enc bench config -- the reference bench's encode setting at the same
+   shape: one parse and one pack launch counted, every stream decodes to
+   its chunk through decode_batch_v3(device="cuda", max_groups=8) with no
+   fallback, no ovf lane, ratio, stage times, and the plain pack against
+   both pack kernels bit for bit at the widest table indexing (8 groups x
+   8 trees);
+11. v3 kernel == plain version on the card, bit for bit over the bytes and
    all 16 status rows: 1024 x 1 KB port-encoded streams (4 context-mapped
    trees, 2 table groups), host q9/q11 encodes with tree groups and block
    switching in all three categories, one static-dictionary word per
    transform (121) over a group, the compound-dictionary streams, and a
    batch with one poisoned and one truncated lane (both must flag);
-11. v3 main path -- the reference bench's full-format shape: 6 groups x
+12. v3 main path -- the reference bench's full-format shape: 6 groups x
    1024 x 4096 B = 25,165,824 B encoded on the card by encode_device_batch
    (lit_ctx_trees=8), decoded by decode_batch_v3(device="cuda",
-   max_groups=6): equal to the input, no fallback, the decode3 kernel
-   launched; host clock of the call with the preflight apart;
-12. v3 times with CUDA events on the staged main batch: the kernel at
+   max_groups=6, dict_dev=stage_dictionary("cuda")): equal to the input,
+   no fallback, the decode3 kernel launched on the staged dictionary;
+   host clock of the call with the preflight apart;
+13. v3 times with CUDA events on the staged main batch: the kernel at
    use_dict=False (the bench's timed setting) and True, the output
    allocation and fill alone, and the plain version once, equal to it;
-13. v3 full -- decode_batch_v3_full(device="cuda") on 1024 lanes of three
+14. v3 full -- decode_batch_v3_full(device="cuda") on 1024 lanes of three
    64 KB streams (a streaming Encoder(quality=5, lgwin=18) fed 1 KB updates
    in 16 KB metablocks, a spliced parallel_encode stream, an uncompressed
    one):
    equal to the input, no fallback, one kernel launch per round;
-14. probes -- run_probe_v2 at every level and run_probe_v2b at every
+15. probes -- run_probe_v2 at every level and run_probe_v2b at every
    variant of the TPU scripts, launches counted from 0; each kernel's
    outputs held against its plain version bit for bit; ns per row;
-15. profile -- profile_e2e_decode on the main-path batch: per-phase times
+16. profile -- profile_e2e_decode on the main-path batch: per-phase times
    and the device's busy share from torch.profiler (Chrome trace in
    brotli_tpu_torch/build/trace/);
-16. entry() -- the port's entry point called once and synchronised.
+17. entry() -- the port's entry point called once and synchronised.
 
 Kernel times come from utils.benchmarks.time_device_fn (CUDA events) and
 the encoder's stage times from utils.profiling.profile_device_encode,
@@ -81,6 +90,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
@@ -386,23 +396,75 @@ def enc_pack_batch(data: bytes, chunk: int, table_groups: int = 1,
     return E.prepare_pack(state, 22, table_groups, lit_ctx_trees)
 
 
+def ovf_pack_batch(seed: int = 17):
+    """1024 lanes of 256 random records of every kind against random
+    tables of two groups with two literal trees: symbol codes up to 15 bits
+    and extras up to 24, so the first 512 lanes (a 15-bit distance code and
+    21-24 extra bits every row) overflow the buffer; lane 5 names a group
+    outside the table stack.  On the card."""
+    from brotli_tpu_torch.ops import device_encode as E
+
+    rng = np.random.default_rng(seed)
+    rows, lanes, G, nt = 256, 1024, 2, 2
+    kind = rng.integers(0, 4, (rows, lanes))
+    code = np.select(
+        [kind == E.K_CMD, kind == E.K_DIST, kind == E.K_LIT],
+        [rng.integers(0, 704, (rows, lanes)),
+         rng.integers(0, 64, (rows, lanes)),
+         rng.integers(0, 1 << 26, (rows, lanes)) & ~0x3F00], 0)
+    kind[:, :512] = E.K_DIST
+    code[:, :512] = rng.integers(56, 64, (rows, 512))
+    rec0 = np.where(kind == 0, 0, (kind << 28) | code).astype(np.int32)
+    rec1 = rng.integers(0, 1 << 32, (rows, lanes), dtype=np.uint64)
+    tabk = E._tab_chunks(nt)
+    nbits = rng.integers(1, 16, (G, tabk * 128))
+    nbits[:, nt * 256 + 704:] = 15
+    bits = rng.integers(0, 1 << 15, (G, tabk * 128)) & ((1 << nbits) - 1)
+    cmap = rng.integers(0, nt, (G, 128)).astype(np.int32)
+    cmap[:, 127] = [0, 1]
+    grp = rng.integers(0, G, lanes).astype(np.int32)
+    grp[5] = G
+    initav = rng.integers(0, 32, lanes).astype(np.int32)
+    init0 = (rng.integers(0, 1 << 32, lanes, dtype=np.uint64)
+             & ((1 << initav.astype(np.uint64)) - 1)).astype(np.uint32)
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).cuda()
+
+    return E.PackBatch(
+        rec0=put(rec0), rec1=put(rec1.astype(np.uint32).view(np.int32)),
+        tab=put(((nbits << 16) | bits).astype(np.int32)), cmap=put(cmap),
+        consts=put(E._pack_consts()[0]), grp=put(grp),
+        init0=put(init0.view(np.int32)), initav=put(initav), sw=None,
+        stype=None, nt=nt, nbt=1, pseg=2048, nseg=1)
+
+
 def phase_enc_kernel_vs_plain() -> int:
-    """The pack kernel against pack_records_ref on CUDA tensors."""
+    """Both pack kernels against pack_records_ref on CUDA tensors."""
     from brotli_tpu_torch.ops import device_encode as E
 
     data = corpus(1024 * 2048)
     worst = 0
-    for name, kw in ENC_PLAIN_SETS.items():
-        pb = enc_pack_batch(data, 2048, **kw)[0]
-        ker = E.pack_records(pb)
+    batches = [(f"1024 lanes x 2 KB, {name}",
+                enc_pack_batch(data, 2048, **kw)[0])
+               for name, kw in ENC_PLAIN_SETS.items()]
+    batches.append(("1024 lanes x 256 random records (ovf)", ovf_pack_batch()))
+    for name, pb in batches:
         ref = E.pack_records_ref(pb)
-        torch.cuda.synchronize()
-        err = max_abs_err(ker, ref)
-        check(err == 0, f"pack kernel != plain version ({name}): {err}")
-        check(not bool(ker[1][5].any()), f"ovf lanes in the {name} batch")
-        worst = max(worst, err)
-        print(f"[enc kernel==plain] 1024 lanes x 2 KB, {name}: max_abs_err "
-              f"{err} over words and status (exact equality required)")
+        n_ovf = int(ref[1][5].sum().item())
+        check(n_ovf == (511 if "ovf" in name else 0),
+              f"{n_ovf} ovf lanes in the {name} batch")
+        errs = []
+        for kernel in (E.pack_records, E.pack_records_serial):
+            ker = kernel(pb)
+            torch.cuda.synchronize()
+            errs.append(max_abs_err(ker, ref))
+        check(errs == [0, 0], f"pack kernels != plain version ({name}): "
+              f"segmented {errs[0]}, serial {errs[1]}")
+        worst = max(worst, *errs)
+        print(f"[enc kernel==plain] {name}: max_abs_err {errs[0]} (segmented "
+              f"pack), {errs[1]} (serial pack) over words and status, "
+              f"{n_ovf} ovf lanes (exact equality required)")
     return worst
 
 
@@ -434,19 +496,22 @@ def phase_enc_card_vs_cpu() -> None:
 
 def encode_counted(data: bytes, **kw) -> tuple[list[bytes], float, dict]:
     """encode_device_batch on the card through profile_device_encode, the
-    pack launches counted from 0 and the stages timed inside that encode;
-    returns (streams, host-clock s, what was seen: launches, phases, the
-    pack kernel's input `pb` and output `pack_out`, the encode's state).
-    The launch count is read before anything else launches the kernel."""
+    pack and parse launches counted from 0 and the stages timed inside that
+    encode; returns (streams, host-clock s, what was seen: launches, phases,
+    the pack kernel's input `pb` and output `pack_out`, the encode's
+    state).  The launch counts are read before anything else launches the
+    kernels."""
     import brotli_tpu_torch
     from brotli_tpu_torch.ops import device_encode as E
     from brotli_tpu_torch.utils.profiling import profile_device_encode
 
     enc0 = brotli_tpu_torch.encode_fallback_stats()["lanes_fallback"]
     E.KERNEL_LAUNCHES = 0
+    E.PARSE_LAUNCHES = 0
     streams, phases, summary, state = profile_device_encode(
         data, "cuda", chunk_size=ENC_CHUNK, **kw)
-    seen = {"launches": E.KERNEL_LAUNCHES, "phases": phases,
+    seen = {"launches": E.KERNEL_LAUNCHES,
+            "parse_launches": E.PARSE_LAUNCHES, "phases": phases,
             "pb": state["pb"], "pack_out": (state["words"], state["status"]),
             "state": state}
     fell = brotli_tpu_torch.encode_fallback_stats()["lanes_fallback"] - enc0
@@ -454,6 +519,8 @@ def encode_counted(data: bytes, **kw) -> tuple[list[bytes], float, dict]:
     check(fell == 0, f"{fell} lanes overflowed (host-encoded)")
     check(seen["launches"] == 1,
           f"the pack kernel launched {seen['launches']} times, want 1")
+    check(seen["parse_launches"] == 1,
+          f"the parse kernel launched {seen['parse_launches']} times, want 1")
     sizes = E.stream_sizes(state)
     check(list(sizes) == [len(s) for s in streams],
           "stream_sizes disagrees with the streams' lengths")
@@ -470,15 +537,20 @@ def enc_breakdown(seen: dict) -> str:
 
 
 def pack_vs_plain(seen: dict, what: str) -> tuple[int, float]:
-    """The plain pack on the PackBatch an encode built, against the kernel's
-    output in that encode, bit for bit; returns (max_abs_err, plain ms)."""
+    """The plain pack on the PackBatch an encode built, against the
+    segmented kernel's output in that encode and against the serial
+    kernel's on the same batch, bit for bit; returns (max_abs_err, plain
+    ms)."""
     from brotli_tpu_torch.ops import device_encode as E
 
     out = {}
     ms = plain_ms(lambda: out.__setitem__("p", E.pack_records_ref(seen["pb"])))
     err = max_abs_err(seen["pack_out"], out["p"])
     check(err == 0, f"pack kernel != plain version at {what}: {err}")
-    return err, ms
+    serial_err = max_abs_err(E.pack_records_serial(seen["pb"]), out["p"])
+    check(serial_err == 0,
+          f"serial pack kernel != plain version at {what}: {serial_err}")
+    return max(err, serial_err), ms
 
 
 def pack_bound(seen: dict) -> tuple[float, str]:
@@ -510,8 +582,8 @@ def phase_enc_main(data: bytes, card_str: str):
     got = brotli_tpu_torch.decode_batch_device_e2e(streams, device="cuda")
     torch.cuda.synchronize()
     dec_s = time.perf_counter() - t0
-    launches = {"pack": seen["launches"], "entropy": D.KERNEL_LAUNCHES,
-                "resolve": R.KERNEL_LAUNCHES}
+    launches = {"parse": seen["parse_launches"], "pack": seen["launches"],
+                "entropy": D.KERNEL_LAUNCHES, "resolve": R.KERNEL_LAUNCHES}
     dec_fell = brotli_tpu_torch.fallback_stats()["lanes_fallback"] - dec0
     check(b"".join(got) == data, "encode -> decode differs from the input")
     check(dec_fell == 0, f"{dec_fell} lanes fell back to the host decoder")
@@ -556,33 +628,109 @@ def phase_enc_bench(data: bytes, card_str: str) -> int:
           f"decode_batch_v3(device='cuda') in "
           f"{dec_s:.3f} s (host clock), 0 fallback lanes, 0 ovf lanes, ratio "
           f"{ratio:.6f}, encode {dt:.3f} s ({len(data) / dt / 1e6:.3f} MB/s, "
-          f"host clock), pack launches {seen['launches']}")
+          f"host clock), parse launches {seen['parse_launches']}, pack "
+          f"launches {seen['launches']}")
     line = enc_breakdown(seen)
     print(f"[enc times] {card_str}: bench setting, inside that encode "
           f"(profile_device_encode, one run): {line}")
     err, plain = pack_vs_plain(seen, "the bench setting")
     print(f"[enc kernel==plain] 1024 lanes x 32 KB, bench setting "
           f"({seen['pb'].tab.shape[0]} groups x {seen['pb'].nt} trees): "
-          f"max_abs_err {err} over words and status; plain pack {plain:.3f} "
-          "ms (CUDA events, one run)")
+          f"max_abs_err {err} over words and status (segmented and serial "
+          f"pack); plain pack {plain:.3f} ms (CUDA events, one run)")
     return err
 
 
-def phase_enc_times(seen: dict, card_str: str) -> dict:
-    """The pack kernel on the main path's PackBatch, and its plain version
-    against the main path's kernel output."""
+# the parse's lazy / gate knob sets, and match-finder settings whose
+# matches it parses (default; the bench's chain depth; the v3 cell's
+# distance cap)
+PARSE_KNOBS = [((105, 175), 9), ((60, 120), 12)]
+PARSE_MATCH_SETS = {"default": dict(),
+                    "chain_depth 4": dict(chain_depth=4),
+                    "max_distance 1008": dict(chain_depth=4,
+                                              max_distance=1008)}
+
+
+def parse_inputs(data: bytes, chunk: int, **match_kw):
+    """(mlen, mdist, n_valid) on the card, as the encode's first stage
+    gives them to the parse."""
     from brotli_tpu_torch.ops import device_encode as E
 
-    pack_ms = device_ms(lambda: E.pack_records(seen["pb"]))
+    data_t, _, n_valid = E.stage_input(data, chunk, torch.device("cuda"))
+    mlen, mdist = E.find_matches(data_t, n_valid, **match_kw)
+    return mlen, mdist, n_valid
+
+
+def phase_parse_kernel_vs_plain(enc_data: bytes, card_str: str) -> dict:
+    """greedy_parse's kernel against greedy_parse_ref on CUDA tensors: both
+    knob sets on 1024 x 2 KB for each match setting, then the main
+    encode's inputs (1024 x 32 KB, default knobs) once, timed."""
+    from brotli_tpu_torch.ops import device_encode as E
+
+    data = corpus(1024 * 2048)
+    worst = 0
+    for mname, mkw in PARSE_MATCH_SETS.items():
+        ins = parse_inputs(data, 2048, **mkw)
+        for lazy, gate in PARSE_KNOBS:
+            ker = E.greedy_parse(*ins, lazy, gate)
+            ref = E.greedy_parse_ref(*ins, lazy, gate)
+            torch.cuda.synchronize()
+            err = max_abs_err(ker, ref)
+            check(err == 0, f"parse kernel != plain version ({mname}, lazy "
+                  f"{lazy}, gate {gate}): {err}")
+            worst = max(worst, err)
+            print(f"[parse kernel==plain] 1024 lanes x 2 KB, matches "
+                  f"{mname}, lazy {lazy}, min_gate {gate}: max_abs_err {err} "
+                  f"over is_cs, is_lit, dcode_short ({int(ker[0].sum())} "
+                  "copies; exact equality required)")
+    mlen, mdist, n_valid = parse_inputs(enc_data, ENC_CHUNK)
+    out = {}
+    ms = device_ms(lambda: out.__setitem__(
+        "k", E.greedy_parse(mlen, mdist, n_valid)))
+    plain = plain_ms(lambda: out.__setitem__(
+        "p", E.greedy_parse_ref(mlen, mdist, n_valid)))
+    err = max_abs_err(out["k"], out["p"])
+    check(err == 0, f"parse kernel != plain version at the main shape: {err}")
+    # bytes: mlen, mdist and n_valid in; is_cs, is_lit (1 B) and dcode
+    # (4 B) out
+    n = mlen.numel()
+    bound = bound_ms(8 * n + 4 * n_valid.numel() + 6 * n)
+    print(f"[parse kernel==plain] 1024 lanes x 32 KB, default knobs: "
+          f"max_abs_err {err} ({int(out['k'][0].sum())} copies)")
+    print(f"[enc times] {card_str}: parse kernel {ms:.4f} ms per "
+          f"{len(enc_data)} B batch (time_device_fn: CUDA events, best of 3 "
+          f"windows of 5, on the main encode's matches); plain "
+          f"greedy_parse_ref {plain:.3f} ms on the same inputs (CUDA "
+          f"events, one run); bound {bound[0]:.6f} ms ({bound[1]})")
+    return {"ms": ms, "plain_ms": plain, "err": max(worst, err),
+            "bound": bound}
+
+
+def phase_enc_times(seen: dict, card_str: str) -> dict:
+    """The segmented and the serial pack kernel on the main path's
+    PackBatch, timed in turns (segmented, serial, serial, segmented), and
+    the plain version against the main path's kernel output."""
+    from brotli_tpu_torch.ops import device_encode as E
+
+    pb = seen["pb"]
+    seg1 = device_ms(lambda: E.pack_records(pb))
+    ser1 = device_ms(lambda: E.pack_records_serial(pb))
+    ser2 = device_ms(lambda: E.pack_records_serial(pb))
+    seg2 = device_ms(lambda: E.pack_records(pb))
+    pack_ms, serial_ms = (seg1 + seg2) / 2, (ser1 + ser2) / 2
     err, plain = pack_vs_plain(seen, "the main shape")
     bound = pack_bound(seen)
-    print(f"[enc times] {card_str}: pack kernel {pack_ms:.4f} ms per "
-          f"{ENC_CHUNK * 1024} B batch (time_device_fn: CUDA events, best of "
-          f"3 windows of 5, on the main path's records); plain pack "
-          f"{plain:.3f} ms on the same batch (CUDA events, one run), "
-          f"max_abs_err {err}; bound {bound[0]:.6f} ms ({bound[1]})")
-    return {"pack_ms": pack_ms, "plain_pack_ms": plain, "err": err,
-            "bound": bound}
+    print(f"[enc times] {card_str}: segmented pack kernel {pack_ms:.4f} ms "
+          f"({seg1:.4f}, {seg2:.4f}), serial pack kernel {serial_ms:.4f} ms "
+          f"({ser1:.4f}, {ser2:.4f}), serial / segmented "
+          f"{serial_ms / pack_ms:.2f}x, per {ENC_CHUNK * 1024} B batch "
+          f"(time_device_fn: CUDA events, best of 3 windows of 5 each, in "
+          f"turns segmented, serial, serial, segmented, on the main path's "
+          f"records); plain pack {plain:.3f} ms on the same batch (CUDA "
+          f"events, one run), max_abs_err {err} (both kernels); bound "
+          f"{bound[0]:.6f} ms ({bound[1]})")
+    return {"pack_ms": pack_ms, "serial_ms": serial_ms,
+            "plain_pack_ms": plain, "err": err, "bound": bound}
 
 
 def dictmix(n: int) -> bytes:
@@ -692,13 +840,15 @@ def v3_main_streams(card_str: str) -> tuple[bytes, list[bytes]]:
 
 
 def phase_v3_main(data: bytes, streams: list[bytes], card_str: str):
-    """decode_batch_v3 on the main shape, the decode3 launches counted from
-    0 and the host preflight timed inside the call."""
+    """decode_batch_v3 on the main shape with the static dictionary staged
+    once beforehand (dict_dev), the decode3 launches counted from 0, the
+    host preflight timed inside the call, and the kernel seen to read the
+    staged dictionary tensor itself (no upload in the call)."""
     import brotli_tpu_torch
     from brotli_tpu_torch.ops import decode3 as D3
 
-    seen = {}
-    preflight = D3.preflight_v3
+    seen = {"dicts": []}
+    preflight, decode3 = D3.preflight_v3, D3.decode3
 
     def timed_preflight(*a, **k):
         t = time.perf_counter()
@@ -706,27 +856,37 @@ def phase_v3_main(data: bytes, streams: list[bytes], card_str: str):
         seen["pre_s"] = time.perf_counter() - t
         return seen["batch"]
 
+    def seen_decode3(tb, *a):
+        seen["dicts"].append(tb.dict)
+        return decode3(tb, *a)
+
+    dict_dev = brotli_tpu_torch.stage_dictionary("cuda")
     fb0 = brotli_tpu_torch.fallback_stats()["lanes_fallback"]
-    D3.preflight_v3 = timed_preflight
+    D3.preflight_v3, D3.decode3 = timed_preflight, seen_decode3
     try:
         D3.KERNEL_LAUNCHES = 0
         t0 = time.perf_counter()
         got = brotli_tpu_torch.decode_batch_v3(streams, device="cuda",
-                                               max_groups=V3_GROUPS)
+                                               max_groups=V3_GROUPS,
+                                               dict_dev=dict_dev)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         launches = D3.KERNEL_LAUNCHES
     finally:
-        D3.preflight_v3 = preflight
+        D3.preflight_v3, D3.decode3 = preflight, decode3
     fell = brotli_tpu_torch.fallback_stats()["lanes_fallback"] - fb0
     check(b"".join(got) == data, "v3 main output differs from the input")
     check(fell == 0, f"{fell} v3 main lanes fell back to the host decoder")
     check(launches >= 1, "decode3 never launched on the v3 main path")
     check(seen["batch"].groups == V3_GROUPS, "v3 main batch is not 6 groups")
+    check(len(seen["dicts"]) == launches
+          and all(d is dict_dev for d in seen["dicts"]),
+          "decode_batch_v3 did not decode from the staged dictionary")
     print(f"[v3 main] {card_str}: {len(data)} B decoded bit-exact through "
-          f"decode_batch_v3(device='cuda'), 0 fallback lanes, decode3 "
-          f"launches {launches}; whole call {dt:.3f} s (host clock), of which "
-          f"host preflight {seen['pre_s']:.3f} s")
+          f"decode_batch_v3(device='cuda', dict_dev=stage_dictionary('cuda')), "
+          f"0 fallback lanes, decode3 launches {launches}, each on the "
+          f"staged dictionary tensor; whole call {dt:.3f} s (host clock), of "
+          f"which host preflight {seen['pre_s']:.3f} s")
     return launches, seen["batch"]
 
 
@@ -933,6 +1093,7 @@ def main() -> int:
     phase_enc_card_vs_cpu()
     enc_data = corpus(1024 * ENC_CHUNK)
     enc_launches, enc_seen = phase_enc_main(enc_data, card_str)
+    parse = phase_parse_kernel_vs_plain(enc_data, card_str)
     enc_times = phase_enc_times(enc_seen, card_str)
     del enc_seen
     bench_err = phase_enc_bench(enc_data, card_str)
@@ -966,10 +1127,15 @@ def main() -> int:
             max(errs["resolve"], times["errs"]["resolve"]),
             times["resolve_ms"], times["plain_resolve_ms"],
             times["resolve_bound"]),
-        row("pack_records", "pack.cu", "brotli_tpu/ops/device_encode.py:689",
-            enc_launches["pack"], max(enc_err, enc_times["err"], bench_err),
-            enc_times["pack_ms"], enc_times["plain_pack_ms"],
-            enc_times["bound"]),
+        row("greedy_parse", "parse.cu", "brotli_tpu/ops/device_encode.py:325",
+            enc_launches["parse"], parse["err"], parse["ms"],
+            parse["plain_ms"], parse["bound"]),
+        {**row("pack_records", "pack.cu",
+               "brotli_tpu/ops/device_encode.py:689", enc_launches["pack"],
+               max(enc_err, enc_times["err"], bench_err),
+               enc_times["pack_ms"], enc_times["plain_pack_ms"],
+               enc_times["bound"]),
+         "serial_ms": enc_times["serial_ms"]},
         row("decode3", "decode3.cu", "brotli_tpu/ops/pallas_decode3.py:532",
             v3_launches, max(v3_err, v3_times["err"]), v3_times["ms"],
             v3_times["plain_ms"], v3_times["bound"]),

@@ -353,6 +353,58 @@ def test_compound_dictionary_decodes():
         brotli_tpu_torch.decode_batch_v3(streams, device="cpu", **kw)
 
 
+def test_dict_dev_decodes_like_an_upload(monkeypatch):
+    """dict_dev (the dictionary staged once by stage_dictionary) gives the
+    bytes and status of a call without it, and the host decoder's bytes,
+    through decode_batch_v3 and decode_batch_v3_full; the batch takes the
+    staged tensor itself, and the calls then stage no dictionary."""
+    streams, expected, _ = case("dict_transforms")
+    batch = staged("dict_transforms")
+    dict_dev = brotli_tpu_torch.stage_dictionary("cpu")
+    tb = D3.batch_to_torch_v3(batch, "cpu", dict_dev=dict_dev)
+    assert tb.dict is dict_dev
+    with_dev = D3.run_batch_v3(batch, "cpu", dict_dev=dict_dev)
+    for a, b in zip(with_dev, D3.run_batch_v3(batch, "cpu")):
+        assert torch.equal(a, b)
+    assert int(with_dev[1][0].abs().sum()) == 0
+
+    dicts = []
+    decode3 = D3.decode3
+    monkeypatch.setattr(D3, "decode3", lambda tb, *a: dicts.append(tb.dict)
+                        or decode3(tb, *a))
+    before = brotli_tpu_torch.fallback_stats()["lanes_fallback"]
+    full_in = streams * 3
+    for fn, ins, want in ((D3.decode_batch_v3, streams, expected),
+                          (D3.decode_batch_v3_full, full_in, expected * 3)):
+        got = fn(ins, device="cpu", dict_dev=dict_dev)
+        assert got == want == [brotli_tpu.decode(s) for s in ins]
+    assert brotli_tpu_torch.fallback_stats()["lanes_fallback"] == before
+    assert len(dicts) == 2 and all(d is dict_dev for d in dicts)
+
+
+def test_dict_dev_rejects_a_bad_tensor():
+    streams, _, _ = case("dict_transforms")
+    good = D3.stage_dictionary("cpu")
+    for bad in (good.to(torch.int32), good[:-512], good.reshape(-1, 512),
+                good.numpy()):
+        with pytest.raises((ValueError, TypeError), match="dict_dev"):
+            D3.decode_batch_v3(streams, device="cpu", dict_dev=bad)
+    with pytest.raises(ValueError, match="dict_dev"):
+        D3.decode_batch_v3_full(streams, device="cpu",
+                                dict_dev=good.to("meta"))
+
+
+@pytest.mark.parametrize("name", ["decode_batch_v3", "decode_batch_v3_full"])
+def test_decode_keywords_match_jax(name):
+    """Every keyword of the JAX function but the TPU-only H and interpret
+    exists on the port's."""
+    import inspect
+
+    jax_kw = set(inspect.signature(getattr(P3, name)).parameters)
+    port_kw = set(inspect.signature(getattr(D3, name)).parameters)
+    assert jax_kw - {"H", "interpret"} <= port_kw
+
+
 def test_batch_to_torch_v3_layout():
     """Tables un-replicated per group at their config offsets, scal rows
     per lane, history right-aligned."""

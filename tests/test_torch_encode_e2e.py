@@ -181,13 +181,13 @@ def test_cuda_device_raises_without_card():
 
 @pytest.mark.cuda
 def test_round_trip_on_card():
-    """Encode and decode on a card through the three kernels (needs one)."""
+    """Encode and decode on a card through the four kernels (needs one)."""
     if not torch.cuda.is_available():
         pytest.skip("no CUDA card: the kernels run only on the GPU")
     from brotli_tpu_torch.ops import decode2 as D
 
     data = _source_text(64 * CHUNK)
-    p0, d0 = TE.KERNEL_LAUNCHES, D.KERNEL_LAUNCHES
+    p0, d0, g0 = TE.KERNEL_LAUNCHES, D.KERNEL_LAUNCHES, TE.PARSE_LAUNCHES
     streams = brotli_tpu_torch.encode_device_batch(data, device="cuda",
                                                    chunk_size=CHUNK)
     assert streams == brotli_tpu_torch.encode_device_batch(
@@ -197,3 +197,4 @@ def test_round_trip_on_card():
     assert b"".join(got) == data
     assert brotli_tpu_torch.fallback_stats()["lanes_fallback"] == before
     assert TE.KERNEL_LAUNCHES == p0 + 1 and D.KERNEL_LAUNCHES == d0 + 1
+    assert TE.PARSE_LAUNCHES == g0 + 1

@@ -1,7 +1,11 @@
-"""The bit-pack kernel of the port (brotli_tpu_torch.ops.device_encode
-.pack_records) against the JAX Pallas kernel (brotli_tpu.ops.device_encode
+"""The bit-pack kernels of the port (brotli_tpu_torch.ops.device_encode
+.pack_records, the segmented scan, and pack_records_serial, the row
+machine) against the JAX Pallas kernel (brotli_tpu.ops.device_encode
 ._build_pack, interpret mode), on the CPU.
 
+On the CPU the kernels' code runs as the g++ host shim; the plain row
+machine pack_records_ref is the yardstick, and pack_records_scan, the scan
+formulation in plain PyTorch, is held against it and JAX as well.
 Tolerance: exact equality, lane for lane: the body words (the JAX words on
 rows whose key is not KEY_PAD, in key order), widx, avail, the three low
 buffer limbs and the overflow flag.  The JAX kernel's keys and the words
@@ -16,6 +20,8 @@ import shutil
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from brotli_tpu.ops import device_encode as JE
 from brotli_tpu_torch.ops import device_encode as TE
@@ -114,13 +120,11 @@ def cases():
     return out
 
 
-def _random_case():
+def _random_arrays():
     """256 random records of every kind against random tables: symbol
     codes up to 15 bits and extras up to 24, so lanes overflow the buffer
     (ovf) and run past its 128 bits.  One lane names a group outside the
-    table stack."""
-    import jax.numpy as jnp
-
+    table stack.  Returns the numpy arrays and the PackBatch."""
     rng = np.random.default_rng(17)
     rows, lanes, G, nt = 256, 1024, 2, 2
     kind = rng.integers(0, 4, (rows, lanes))
@@ -148,6 +152,22 @@ def _random_case():
     initav = rng.integers(0, 32, lanes).astype(np.int32)
     init0 = (rng.integers(0, 1 << 32, lanes, dtype=np.uint64)
              & ((1 << initav.astype(np.uint64)) - 1)).astype(np.uint32)
+    pb = TE.PackBatch(
+        rec0=torch.from_numpy(rec0), rec1=torch.from_numpy(rec1),
+        tab=torch.from_numpy(tab), cmap=torch.from_numpy(cmap),
+        consts=torch.from_numpy(JE._pack_consts()[0].copy()),
+        grp=torch.from_numpy(grp), init0=torch.from_numpy(init0.view(np.int32)),
+        initav=torch.from_numpy(initav), sw=None, stype=None,
+        nt=nt, nbt=1, pseg=2048, nseg=1)
+    return (rec0, rec1, tab, cmap, grp, init0, initav), pb
+
+
+def _random_case():
+    """The random batch and the JAX kernel's result on it."""
+    import jax.numpy as jnp
+
+    (rec0, rec1, tab, cmap, grp, init0, initav), pb = _random_arrays()
+    G, nt = tab.shape[0], 2
 
     def rep(t):   # (G, k*128) -> the JAX kernel's replicated layout
         k = t.shape[1] // 128
@@ -162,14 +182,12 @@ def _random_case():
     res = pack(sub(rec0), sub(rec1), jnp.asarray(rep(tab)),
                jnp.asarray(rep(cmap)), jnp.asarray(JE._pack_consts()),
                sub(grp), sub(init0.view(np.int32)), sub(initav))
-    pb = TE.PackBatch(
-        rec0=torch.from_numpy(rec0), rec1=torch.from_numpy(rec1),
-        tab=torch.from_numpy(tab), cmap=torch.from_numpy(cmap),
-        consts=torch.from_numpy(JE._pack_consts()[0].copy()),
-        grp=torch.from_numpy(grp), init0=torch.from_numpy(init0.view(np.int32)),
-        initav=torch.from_numpy(initav), sw=None, stype=None,
-        nt=nt, nbt=1, pseg=2048, nseg=1)
     return pb, _jax_result(*res)
+
+
+@pytest.fixture(scope="module")
+def random_case():
+    return _random_case()
 
 
 def _check_against_jax(pb, jax_res):
@@ -187,8 +205,8 @@ def test_pack_matches_jax(cases, name):
     assert status[0].max() > 0 and not status[5].any()
 
 
-def test_pack_random_records_overflow_like_jax():
-    pb, jax_res = _random_case()
+def test_pack_random_records_overflow_like_jax(random_case):
+    pb, jax_res = random_case
     status = _check_against_jax(pb, jax_res)
     # lane 5's group has no table, so its codes have no bits and only the
     # extras fill its buffer
@@ -198,13 +216,70 @@ def test_pack_random_records_overflow_like_jax():
 
 
 @pytest.mark.parametrize("name", list(CONFIGS) + ["random"])
-def test_host_shim_matches_plain(cases, name):
-    """csrc/pack.cuh built by g++ == the plain PyTorch version."""
+def test_pack_scan_matches_plain_and_jax(cases, random_case, name):
+    """pack_records_scan (cumsum and cummin over rows) == the row machine
+    pack_records_ref == the JAX kernel, words and status; the random
+    batch's ovf lanes included."""
+    pb, (jwords, jstatus) = random_case if name == "random" else cases[name]
+    scan = TE.pack_records_scan(pb, chunk=100)
+    for a, b in zip(scan, TE.pack_records_ref(pb)):
+        assert torch.equal(a, b)
+    np.testing.assert_array_equal(scan[0].numpy(), jwords)
+    np.testing.assert_array_equal(scan[1].numpy(), jstatus)
+
+
+@pytest.mark.parametrize("name", list(CONFIGS) + ["random"])
+def test_host_shim_matches_plain(cases, random_case, name):
+    """csrc/pack.cuh built by g++ == the plain PyTorch version: the
+    segmented kernel's four passes (which also check that no word is
+    stored by two segments) and the serial kernel's row machine."""
     if shutil.which("g++") is None:
         pytest.skip("g++ not found: the host shim cannot be built")
-    pb = _random_case()[0] if name == "random" else cases[name][0]
-    for a, b in zip(TE.pack_records_host(pb), TE.pack_records_ref(pb)):
-        assert torch.equal(a, b)
+    pb = random_case[0] if name == "random" else cases[name][0]
+    ref = TE.pack_records_ref(pb)
+    for serial in (False, True):
+        for a, b in zip(TE.pack_records_host(pb, serial=serial), ref):
+            assert torch.equal(a, b)
+
+
+def _row_rule(n_bits, initav):
+    """Words emitted through each row by the row machine's rule: a row
+    appends its bits, then one word leaves when 32 or more are held."""
+    avail, w, out = initav, 0, []
+    for nb in n_bits:
+        avail += nb
+        if avail >= 32:
+            avail -= 32
+            w += 1
+        out.append(w)
+    return out
+
+
+@settings(max_examples=300, deadline=None, derandomize=True)
+@given(n_bits=st.lists(st.integers(0, 4 * 63), min_size=1, max_size=700),
+       initav=st.integers(0, 40),
+       cuts=st.lists(st.integers(1, 700), max_size=6))
+def test_scan_identity_matches_row_rule(n_bits, initav, cuts):
+    """W_r = r + min(1, min_{j<=r} (F_j - j)) with F_j = S_j >> 5 is the row
+    rule's count of words; and a segment's minimum, taken alone as (A, T)
+    (csrc/pack.cuh pack_seg_count / pack_seg_min), gives the same prefix
+    minimum once its start bit is known."""
+    S = initav + np.cumsum(n_bits)
+    r = np.arange(len(n_bits))
+    M = np.minimum.accumulate((S >> 5) - r)
+    W = r + np.minimum(M, 1)
+    assert W.tolist() == _row_rule(n_bits, initav)
+
+    bounds = sorted({0, len(n_bits), *[c for c in cuts if c < len(n_bits)]})
+    s, m = initav, 1 << 30
+    for lo, hi in zip(bounds, bounds[1:]):
+        x = np.cumsum(n_bits[lo:hi])
+        aj = (x >> 5) - np.arange(hi - lo)
+        a = aj.min()
+        t = (32 - (x & 31))[aj == a].max()
+        m = min(m, (s >> 5) + a + int((s & 31) >= t) - lo)
+        assert m == M[hi - 1]
+        s += int(x[-1])
 
 
 def test_pack_rejects_bad_tensors(cases):
@@ -215,12 +290,20 @@ def test_pack_rejects_bad_tensors(cases):
     bad = TE.PackBatch(**{**pb.__dict__, "sw": None})
     with pytest.raises(ValueError, match="sw"):
         TE.pack_records(bad)
+    with pytest.raises(ValueError, match="CUDA"):
+        TE.pack_records_serial(pb)
+
+
+def _on_card(pb):
+    return TE.PackBatch(**{k: v.cuda() if isinstance(v, torch.Tensor) else v
+                           for k, v in pb.__dict__.items()})
 
 
 @pytest.mark.cuda
 def test_pack_kernel_matches_plain_on_card(monkeypatch):
-    """The CUDA kernel == the plain version on CUDA tensors (needs a card;
-    no JAX: the inputs come from the port's own encoder)."""
+    """Both CUDA kernels, the segmented one and the serial one, == the
+    plain version on CUDA tensors (needs a card; no JAX: the inputs come
+    from the port's own encoder)."""
     if not torch.cuda.is_available():
         pytest.skip("no CUDA card: the kernel runs only on the GPU")
     seen = []
@@ -231,11 +314,27 @@ def test_pack_kernel_matches_plain_on_card(monkeypatch):
         TE.encode_device_batch(_data(), chunk_size=1024, device="cpu", **kw)
     monkeypatch.undo()
     for pb in seen:
-        on_card = TE.PackBatch(**{
-            k: v.cuda() if isinstance(v, torch.Tensor) else v
-            for k, v in pb.__dict__.items()})
-        before = TE.KERNEL_LAUNCHES
+        on_card = _on_card(pb)
+        before = TE.KERNEL_LAUNCHES, TE.SERIAL_PACK_LAUNCHES
         ker = TE.pack_records(on_card)
-        assert TE.KERNEL_LAUNCHES == before + 1
-        for a, b in zip(ker, TE.pack_records_ref(on_card)):
+        serial = TE.pack_records_serial(on_card)
+        assert (TE.KERNEL_LAUNCHES, TE.SERIAL_PACK_LAUNCHES) == (
+            before[0] + 1, before[1] + 1)
+        ref = TE.pack_records_ref(on_card)
+        for a, b, c in zip(ker, serial, ref):
+            assert torch.equal(a.cpu(), c.cpu()) and torch.equal(b.cpu(),
+                                                                  c.cpu())
+
+
+@pytest.mark.cuda
+def test_pack_kernels_overflow_like_plain_on_card():
+    """The random batch, half of whose lanes overflow: the segmented
+    kernel's ovf lanes finish through the row machine."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA card: the kernel runs only on the GPU")
+    pb = _on_card(_random_arrays()[1])
+    ref = TE.pack_records_ref(pb)
+    assert int(ref[1][5].sum()) == 511
+    for out in (TE.pack_records(pb), TE.pack_records_serial(pb)):
+        for a, b in zip(out, ref):
             assert torch.equal(a.cpu(), b.cpu())
