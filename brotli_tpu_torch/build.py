@@ -52,8 +52,11 @@ _libs: dict[str, ctypes.CDLL] = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_DECODE2_ARGS = [_P] * 12 + [_I] * 9
-_DECODE3_ARGS = [_P] * 17 + [_I] * 9
+_DECODE2_DIRECT_ARGS = [_P] * 12 + [_I] * 9
+_DECODE2_ARGS = _DECODE2_DIRECT_ARGS + [_I]           # + lanes a warp
+_DECODE3_DIRECT_ARGS = [_P] * 17 + [_I] * 9
+_DECODE3_ARGS = _DECODE3_DIRECT_ARGS + [_I] * 3       # + lanes a warp,
+                                                      # window, table budget
 _RESOLVE_ARGS = [_P] * 5 + [_I, _I, ctypes.c_longlong]
 _PACK_ARGS = [_P] * 13 + [_I] * 9
 _PACK_SERIAL_ARGS = [_P] * 12 + [_I] * 9
@@ -144,7 +147,9 @@ def kernels_lib() -> ctypes.CDLL:
                       [CSRC / src for src in KERNEL_SOURCES])
         _load(name, path, {
             "brotli_torch_decode2": _DECODE2_ARGS + [_P],
+            "brotli_torch_decode2_direct": _DECODE2_DIRECT_ARGS + [_P],
             "brotli_torch_decode3": _DECODE3_ARGS + [_P],
+            "brotli_torch_decode3_direct": _DECODE3_DIRECT_ARGS + [_P],
             "brotli_torch_resolve": _RESOLVE_ARGS + [_P],
             "brotli_torch_pack": _PACK_ARGS + [_P],
             "brotli_torch_pack_serial": _PACK_SERIAL_ARGS + [_P],
@@ -166,7 +171,9 @@ def host_lib() -> ctypes.CDLL:
                       [CSRC / "host_shim.cpp"])
         _load(name, path, {
             "brotli_torch_decode2_host": _DECODE2_ARGS,
+            "brotli_torch_decode2_direct_host": _DECODE2_DIRECT_ARGS,
             "brotli_torch_decode3_host": _DECODE3_ARGS,
+            "brotli_torch_decode3_direct_host": _DECODE3_DIRECT_ARGS,
             "brotli_torch_resolve_host": _RESOLVE_ARGS,
             "brotli_torch_pack_host": _PACK_ARGS,
             "brotli_torch_pack_serial_host": _PACK_SERIAL_ARGS,

@@ -19,6 +19,7 @@
 #pragma once
 
 #include "common.cuh"
+#include "queue.cuh"
 
 namespace brotli_torch {
 
@@ -82,13 +83,13 @@ BROTLI_HD void read_symbol(const i32* t, i32 k, u32 v15, i32& sym, i32& nb) {
   }
 }
 
-// Decode one lane.  words[w * wstride] is the lane's w-th 32-bit word
-// (rebased to its command start word); tokens go to tok[i * tstride].
-BROTLI_HD Decode2Result decode2_lane(const Decode2Tables& T,
-                                     const Decode2Params& P,
-                                     const u32* words, i64 wstride,
-                                     i32 start_bit, i32 mlen,
-                                     u32* tok, i64 tstride) {
+// Decode one lane.  B is the lane's backend: O.word(w) is the lane's w-th
+// 32-bit word (rebased to its command start word), asked for in order
+// w = 0, 1, ...; O.token(i, t) stores the lane's i-th token.
+template <class B>
+BROTLI_HD Decode2Result decode2_run(const Decode2Tables& T,
+                                    const Decode2Params& P, i32 start_bit,
+                                    i32 mlen, B& O) {
   i32 phase = mlen > 0 ? PH_INIT : PH_DONE;
   i32 widx = 0, avail = 0, mbl = mlen, count = 0;
   u32 b0 = 0, b1 = 0, b2 = 0;
@@ -103,7 +104,7 @@ BROTLI_HD Decode2Result decode2_lane(const Decode2Tables& T,
     // ---- refill: one word when avail <= 64 ----
     const bool need = avail <= 64 && widx < P.wpad;
     if (need) {
-      const u32 acc = words[(i64)widx * wstride];
+      const u32 acc = O.word(widx);
       const u32 sh = (u32)(avail & 31);
       const i32 limb = avail >> 5;
       const u32 lo = acc << sh;
@@ -313,12 +314,54 @@ BROTLI_HD Decode2Result decode2_lane(const Decode2Tables& T,
       if (count >= P.cap) {
         phase = PH_ERR;  // more tokens than an honest lane can produce
       } else {
-        tok[(i64)count * tstride] = token;
+        O.token(count, token);
         ++count;
       }
     }
   }
   return Decode2Result{count, phase, widx};
+}
+
+// The direct backend (csrc/decode2.cu `decode2_direct_kernel`): each
+// word loaded when the row rule asks for it, each token stored at once.
+struct Direct2 {
+  const u32* words;
+  i64 wstride;
+  u32* tok;
+  i64 tstride;
+  BROTLI_HD u32 word(i32 w) const { return words[(i64)w * wstride]; }
+  BROTLI_HD void token(i32 i, u32 t) const { tok[(i64)i * tstride] = t; }
+};
+
+// words[w * wstride] is the lane's w-th word; tokens go to tok[i * tstride].
+BROTLI_HD Decode2Result decode2_lane(const Decode2Tables& T,
+                                     const Decode2Params& P,
+                                     const u32* words, i64 wstride,
+                                     i32 start_bit, i32 mlen,
+                                     u32* tok, i64 tstride) {
+  Direct2 O{words, wstride, tok, tstride};
+  return decode2_run(T, P, start_bit, mlen, O);
+}
+
+// The queued backend (csrc/decode2.cu `decode2_kernel`): words come
+// through the lane's look-ahead queue (queue.cuh), tokens are stored at
+// once, token-major.
+struct Queued2 {
+  WordQueue wq;
+  u32* tok;
+  i64 tstride;
+  BROTLI_HD u32 word(i32 w) { return wq.pop(w); }
+  BROTLI_HD void token(i32 i, u32 t) const { tok[(i64)i * tstride] = t; }
+};
+
+BROTLI_HD Decode2Result decode2_lane_queued(const Decode2Tables& T,
+                                            const Decode2Params& P,
+                                            i32 start_bit, i32 mlen,
+                                            Queued2& O) {
+  O.wq.start();
+  const Decode2Result r = decode2_run(T, P, start_bit, mlen, O);
+  O.wq.drain();
+  return r;
 }
 
 }  // namespace brotli_torch

@@ -31,6 +31,7 @@
 #pragma once
 
 #include "common.cuh"
+#include "queue.cuh"
 
 namespace brotli_torch {
 
@@ -140,6 +141,7 @@ struct State3 {
 // chunks (JAX read_symbol).  The reference's select chains give entry 0
 // for a tree outside the group and for a level-2 index outside the chunks
 // 2.. of some tree, and so does this.
+template <class B>
 BROTLI_HD void read_symbol3(const i32* tab, i32 tc, i32 ntrees, i32 tree,
                             u32 v15, i32& sym, i32& nb) {
   if (tree < 0 || tree >= ntrees) {
@@ -149,14 +151,14 @@ BROTLI_HD void read_symbol3(const i32* tab, i32 tc, i32 ntrees, i32 tree,
   }
   const i32 root = (i32)(v15 & 0xFFu);
   const i32 base = tree * tc;
-  const i32 e0 = ldg(tab + base * 128 + root);
+  const i32 e0 = B::ld(tab + base * 128 + root);
   const i32 bits0 = e0 >> 16;
   if (bits0 > 8) {
     const u32 sub_mask = (1u << (u32)(bits0 > 15 ? 15 : bits0)) - 1u;
     const i32 idx2 = root + (e0 & 0xFFFF) + (i32)((v15 & sub_mask) >> 8);
     const i32 a = base + (idx2 >> 7);
     const i32 e1 = (a < ntrees * tc && a % tc >= 2)
-                       ? ldg(tab + a * 128 + (idx2 & 127)) : 0;
+                       ? B::ld(tab + a * 128 + (idx2 & 127)) : 0;
     sym = e1 & 0xFFFF;
     nb = (e1 >> 16) + 8;
   } else {
@@ -166,25 +168,27 @@ BROTLI_HD void read_symbol3(const i32* tab, i32 tc, i32 ntrees, i32 tree,
 }
 
 // entry idx of a map of n_chunks chunks, 0 outside it (JAX chunk_lookup)
+template <class B>
 BROTLI_HD i32 map_get(const i32* t, i32 n_chunks, i32 idx) {
-  return (idx >= 0 && (idx >> 7) < n_chunks) ? ldg(t + idx) : 0;
+  return (idx >= 0 && (idx >> 7) < n_chunks) ? B::ld(t + idx) : 0;
 }
 
 // Literal context id (JAX lut2): modes 0/1 closed-form, modes 2/3 from the
 // LUT, read only in chunks 8-15 as the reference reads them.
+template <class B>
 BROTLI_HD i32 lut2(const i32* lut, i32 clo, i32 p1, i32 p2) {
   const i32 mode = clo >> 9;
   if (mode == 0) return p1 & 63;
   if (mode == 1) return p1 >> 2;
   const i32 i1 = clo + p1, i2 = clo + 256 + p2;
   const i32 c1 = i1 >> 7, c2 = i2 >> 7;
-  const i32 a = (c1 == 8 || c1 == 9 || c1 == 12 || c1 == 13) ? ldg(lut + i1) : 0;
-  const i32 b = (c2 == 10 || c2 == 11 || c2 == 14 || c2 == 15) ? ldg(lut + i2) : 0;
+  const i32 a = (c1 == 8 || c1 == 9 || c1 == 12 || c1 == 13) ? B::ld(lut + i1) : 0;
+  const i32 b = (c2 == 10 || c2 == 11 || c2 == 14 || c2 == 15) ? B::ld(lut + i2) : 0;
   return a | b;
 }
 
-BROTLI_HD void refill3(State3& s, const Decode3Lane& L) {
-  const u32 acc = ldg(L.words + (i64)s.widx * L.wstride);
+// One refill of the row rule: `acc` is the lane's word at s.widx.
+BROTLI_HD void refill3(State3& s, u32 acc) {
   const u32 sh = (u32)(s.avail & 31);
   const i32 limb = s.avail >> 5;
   const u32 lo = acc << sh;
@@ -221,16 +225,16 @@ BROTLI_HD void push_ring(State3& s, i32 distance) {
 // Block switch of category CAT when its block length is 0 (JAX
 // block_switch).  Returns whether the lane switched: the row's step is then
 // the switch alone.  Length extra bits that do not fit spill to BSW2.
-template <int CAT>
+template <int CAT, class B>
 BROTLI_HD bool block_switch3(State3& s, const Decode3Shared& S,
                              const Decode3Group& G, i32& q) {
   const i32 nbt = G.nbt[CAT];
   if (nbt < 2 || s.blen[CAT] != 0) return false;
   i32 tsym, tnb, lsym, lnb;
-  read_symbol3(G.bsw + CAT * BTCH3 * 128, BTCH3, 1, 0, pk(s, q) & 0x7FFFu,
+  read_symbol3<B>(G.bsw + CAT * BTCH3 * 128, BTCH3, 1, 0, pk(s, q) & 0x7FFFu,
                tsym, tnb);
   q += tnb;
-  read_symbol3(G.bsw + (3 * BTCH3 + CAT * BLCH3) * 128, BLCH3, 1, 0,
+  read_symbol3<B>(G.bsw + (3 * BTCH3 + CAT * BLCH3) * 128, BLCH3, 1, 0,
                pk(s, q) & 0x7FFFu, lsym, lnb);
   q += lnb;
   const i32 bt_cur = s.bt[CAT];
@@ -238,8 +242,8 @@ BROTLI_HD bool block_switch3(State3& s, const Decode3Shared& S,
   if (bt >= nbt) bt -= nbt;
   s.btp[CAT] = bt_cur;
   s.bt[CAT] = bt;
-  if (CAT == 0) s.clo = ldg(G.cmap + (G.lcmch + G.dcmch) * 128 + (bt & 127));
-  const i32 pack = ldg(S.consts + 128 + clip(lsym, 0, 25));
+  if (CAT == 0) s.clo = B::ld(G.cmap + (G.lcmch + G.dcmch) * 128 + (bt & 127));
+  const i32 pack = B::ld(S.consts + 128 + clip(lsym, 0, 25));
   const i32 nbx = pack >> 20, offx = pack & 0xFFFFF;
   if (q + nbx <= 32) {
     s.blen[CAT] = offx + (i32)(pk(s, q) & 0xFFFFFFu & low_mask((u32)nbx));
@@ -253,18 +257,20 @@ BROTLI_HD bool block_switch3(State3& s, const Decode3Shared& S,
 }
 
 // tree of the next literal after bytes p1, p2 (JAX lit_tree)
+template <class B>
 BROTLI_HD i32 lit_tree(const State3& s, const Decode3Shared& S,
                        const Decode3Group& G, i32 p1, i32 p2) {
   const i32 cidx = (s.bt[0] << 6) +
-                   (G.trivial_lit ? 0 : lut2(S.lut, s.clo, p1, p2));
-  return map_get(G.cmap, G.lcmch, cidx);
+                   (G.trivial_lit ? 0 : lut2<B>(S.lut, s.clo, p1, p2));
+  return map_get<B>(G.cmap, G.lcmch, cidx);
 }
 
 // The bytes of a dictionary word (JAX dict_byte, all at once): prefix,
 // body, suffix; the body from the static dictionary with the uppercase
 // ("ferment") UTF-8 state machine, or from the compound dictionary as is.
-BROTLI_HD void dict_bytes(State3& s, const Decode3Shared& S,
-                          const Decode3Lane& L, bool compound, i32 total,
+template <class B>
+BROTLI_HD void dict_bytes(State3& s, const Decode3Shared& S, B& O,
+                          bool compound, i32 total,
                           i32 pre, i32 bodyn, i32 woff, i32 poff, i32 soff,
                           i32 op) {
   i32 clpos = 0, cllen = 0, clxp = 0, clxv = 0, fdone = 0;
@@ -287,18 +293,19 @@ BROTLI_HD void dict_bytes(State3& s, const Decode3Shared& S,
         if (clpos + 1 >= cllen && op == 10) fdone = 1;
         clpos += 1;
       }
-      put_byte(s, L, (u32)d_b & 0xFFu);
+      O.put(s, (u32)d_b & 0xFFu);
     } else {
       const i32 off = in_pre ? poff + i : soff + (bi - bodyn);
-      put_byte(s, L, ldg(S.tfs + clip(off, 0, S.tfs_n - 1)));
+      O.put(s, ldg(S.tfs + clip(off, 0, S.tfs_n - 1)));
     }
   }
 }
 
 // A distance beyond the window (JAX "finalize distance", dictionary half).
 // Returns whether a word was written that keeps the lane in DICT rows.
-BROTLI_HD bool dict_ref(State3& s, const Decode3Shared& S,
-                        const Decode3Lane& L, i32 distance, i32 max_dist) {
+template <class B>
+BROTLI_HD bool dict_ref(State3& s, const Decode3Shared& S, B& O,
+                        i32 distance, i32 max_dist) {
   if (!S.use_dict) {
     s.err |= ERR3_FAR_DIST;
     return false;
@@ -317,13 +324,13 @@ BROTLI_HD bool dict_ref(State3& s, const Decode3Shared& S,
       }
       push_ring(s, distance);
       s.mbl -= wlen;
-      dict_bytes(s, S, L, true, wlen, 0, wlen, cd_addr, 0, 0, 0);
+      dict_bytes(s, S, O, true, wlen, 0, wlen, cd_addr, 0, 0, 0);
       return true;
     }
     addr -= S.cd_t;
   }
   // static dictionary word with one of the 121 transforms; no ring push
-  const i32 shift = ldg(S.consts + 160 + clip(wlen, 0, 31));
+  const i32 shift = B::ld(S.consts + 160 + clip(wlen, 0, 31));
   if (too_big || wlen > 31 || wlen < 4 || shift == 0) {
     s.err |= ERR3_STREAM;
     return false;
@@ -344,7 +351,7 @@ BROTLI_HD bool dict_ref(State3& s, const Decode3Shared& S,
   const i32 omit_last = (op >= 1 && op <= 9) ? op : 0;
   i32 body = wlen - omit_first - omit_last;
   if (body < 0) body = 0;
-  const i32 woff = ldg(S.consts + 192 + clip(wlen, 0, 31)) + wlen * word_idx +
+  const i32 woff = B::ld(S.consts + 192 + clip(wlen, 0, 31)) + wlen * word_idx +
                    omit_first;
   const i32 total = pre_len + body + suf_len;
   if (total > s.mbl) {
@@ -352,13 +359,16 @@ BROTLI_HD bool dict_ref(State3& s, const Decode3Shared& S,
     return false;
   }
   s.mbl -= total;
-  dict_bytes(s, S, L, false, total, pre_len, body, woff, pre_off, suf_off, op);
+  dict_bytes(s, S, O, false, total, pre_len, body, woff, pre_off, suf_off, op);
   return total > 0;
 }
 
-// Decode one lane and write its status.
-BROTLI_HD void decode3_lane(const Decode3Shared& S, const Decode3Group& G,
-                            const Decode3Lane& L) {
+// Decode one lane and write its status.  B is the lane's backend: where
+// its words come from, where its bytes go and how its copies read them,
+// and how it loads tables (Direct3 and Ring3 below).
+template <class B>
+BROTLI_HD void decode3_run(const Decode3Shared& S, const Decode3Group& G,
+                           const Decode3Lane& L, B& O) {
   const i32 start_bit = L.scal[0];
   const i32 mlen = L.scal[1 * L.sstride];
   const i32 pos0 = L.scal[5 * L.sstride];
@@ -373,7 +383,7 @@ BROTLI_HD void decode3_lane(const Decode3Shared& S, const Decode3Group& G,
     s.bt[c] = 0;
     s.btp[c] = 1;
   }
-  s.clo = ldg(G.cmap + (G.lcmch + G.dcmch) * 128);
+  s.clo = B::ld(G.cmap + (G.lcmch + G.dcmch) * 128);
   s.p1 = L.scal[6 * L.sstride];
   s.p2 = L.scal[7 * L.sstride];
   s.r0 = L.scal[8 * L.sstride];
@@ -391,7 +401,7 @@ BROTLI_HD void decode3_lane(const Decode3Shared& S, const Decode3Group& G,
       break;
     }
     const bool need = s.avail <= 64 && s.widx < L.wpad;
-    if (need) refill3(s, L);
+    if (need) refill3(s, O.word(s));
     const bool run = s.avail >= 65 || (s.phase == P3_INIT && s.avail >= 32);
     if (!run) {
       if (need) continue;  // stall row: the buffer fills first
@@ -408,17 +418,17 @@ BROTLI_HD void decode3_lane(const Decode3Shared& S, const Decode3Group& G,
         s.phase = P3_CMD;
         break;
       case P3_CMD: {
-        if (block_switch3<1>(s, S, G, q)) break;
+        if (block_switch3<1, B>(s, S, G, q)) break;
         s.blen[1] -= 1;
         i32 sym, nb;
-        read_symbol3(G.cmd, CCH3, G.nc, s.bt[1], pk(s, q) & 0x7FFFu, sym, nb);
+        read_symbol3<B>(G.cmd, CCH3, G.nc, s.bt[1], pk(s, q) & 0x7FFFu, sym, nb);
         const i32 cell = sym >> 6;
         const i32 range_idx = cell < 2 ? cell : cell - 2;
         s.ins_code = (shr_sat(0x29850, 2 * range_idx) & 3) * 8 + ((sym >> 3) & 7);
         s.cp_code = (shr_sat(0x26244, 2 * range_idx) & 3) * 8 + (sym & 7);
         s.implicit = cell < 2 ? 1 : 0;
-        const i32 ins_pack = ldg(S.consts + (s.ins_code & 127));
-        const i32 cp_pack = ldg(S.consts + ((s.cp_code + 64) & 127));
+        const i32 ins_pack = B::ld(S.consts + (s.ins_code & 127));
+        const i32 cp_pack = B::ld(S.consts + ((s.cp_code + 64) & 127));
         const i32 nb_i = ins_pack >> 20, off_i = ins_pack & 0xFFFFF;
         const i32 nb_c = cp_pack >> 20, off_c = cp_pack & 0xFFFFF;
         q += nb;
@@ -438,8 +448,8 @@ BROTLI_HD void decode3_lane(const Decode3Shared& S, const Decode3Group& G,
         break;
       }
       case P3_INS_EX: {
-        const i32 ins_pack = ldg(S.consts + (s.ins_code & 127));
-        const i32 cp_pack = ldg(S.consts + ((s.cp_code + 64) & 127));
+        const i32 ins_pack = B::ld(S.consts + (s.ins_code & 127));
+        const i32 cp_pack = B::ld(S.consts + ((s.cp_code + 64) & 127));
         const i32 nb_i = ins_pack >> 20, off_i = ins_pack & 0xFFFFF;
         const i32 nb_c = cp_pack >> 20, off_c = cp_pack & 0xFFFFF;
         s.lit_rem = off_i + (i32)(pk(s, q) & 0xFFFFFFu & low_mask((u32)nb_i));
@@ -453,7 +463,7 @@ BROTLI_HD void decode3_lane(const Decode3Shared& S, const Decode3Group& G,
         break;
       }
       case P3_CP_EX: {
-        const i32 cp_pack = ldg(S.consts + ((s.cp_code + 64) & 127));
+        const i32 cp_pack = B::ld(S.consts + ((s.cp_code + 64) & 127));
         const i32 nb_c = cp_pack >> 20, off_c = cp_pack & 0xFFFFF;
         s.copy_len = off_c + (i32)(pk(s, q) & 0xFFFFFFu & low_mask((u32)nb_c));
         q += nb_c;
@@ -461,7 +471,7 @@ BROTLI_HD void decode3_lane(const Decode3Shared& S, const Decode3Group& G,
         break;
       }
       case P3_BSW2: {
-        const i32 pack = ldg(S.consts + 128 + clip(s.bsw_code, 0, 25));
+        const i32 pack = B::ld(S.consts + 128 + clip(s.bsw_code, 0, 25));
         const i32 nbx = pack >> 20, offx = pack & 0xFFFFF;
         const i32 v = offx + (i32)(pk(s, q) & 0xFFFFFFu & low_mask((u32)nbx));
         q += nbx;
@@ -476,7 +486,7 @@ BROTLI_HD void decode3_lane(const Decode3Shared& S, const Decode3Group& G,
         break;
       }
       case P3_LIT: {
-        if (block_switch3<0>(s, S, G, q)) break;
+        if (block_switch3<0, B>(s, S, G, q)) break;
         if (s.blen[0] <= 0) {
           // one block type and its length spent: the reference stalls this
           // lane for good (and flags it), so flag it now
@@ -484,18 +494,18 @@ BROTLI_HD void decode3_lane(const Decode3Shared& S, const Decode3Group& G,
           break;
         }
         i32 sym0, nb0, sym1 = 0, nb1 = 0;
-        read_symbol3(G.lit, LCH3, G.nl, lit_tree(s, S, G, s.p1, s.p2),
+        read_symbol3<B>(G.lit, LCH3, G.nl, lit_tree<B>(s, S, G, s.p1, s.p2),
                      pk(s, q) & 0x7FFFu, sym0, nb0);
         q += nb0;
         const bool have2 = s.lit_rem >= 2 && s.mbl >= 2 && s.blen[0] >= 2;
         if (have2) {
-          read_symbol3(G.lit, LCH3, G.nl, lit_tree(s, S, G, sym0, s.p1),
+          read_symbol3<B>(G.lit, LCH3, G.nl, lit_tree<B>(s, S, G, sym0, s.p1),
                        pk(s, q) & 0x7FFFu, sym1, nb1);
           q += nb1;
         }
         const i32 took = have2 ? 2 : 1;
-        put_byte(s, L, (u32)sym0 & 0xFFu);
-        if (have2) put_byte(s, L, (u32)sym1 & 0xFFu);
+        O.put(s, (u32)sym0 & 0xFFu);
+        if (have2) O.put(s, (u32)sym1 & 0xFFu);
         s.blen[0] -= took;
         s.lit_rem -= took;
         s.mbl -= took;
@@ -508,16 +518,16 @@ BROTLI_HD void decode3_lane(const Decode3Shared& S, const Decode3Group& G,
       }
       case P3_DIST: {
         const bool is_imp = s.implicit == 1;
-        if (!is_imp && block_switch3<2>(s, S, G, q)) break;
+        if (!is_imp && block_switch3<2, B>(s, S, G, q)) break;
         if (is_imp) {
           s.dcode = -1;
         } else {
           s.blen[2] -= 1;
           const i32 dctx = (s.copy_len < 5 ? s.copy_len : 5) - 2;
-          const i32 tree = map_get(G.cmap + G.lcmch * 128, G.dcmch,
+          const i32 tree = map_get<B>(G.cmap + G.lcmch * 128, G.dcmch,
                                    (s.bt[2] << 2) + dctx);
           i32 sym, nb;
-          read_symbol3(G.dist, DCH3, G.nd, tree, pk(s, q) & 0x7FFFu, sym, nb);
+          read_symbol3<B>(G.dist, DCH3, G.nd, tree, pk(s, q) & 0x7FFFu, sym, nb);
           q += nb;
           s.dcode = sym;
         }
@@ -525,7 +535,7 @@ BROTLI_HD void decode3_lane(const Decode3Shared& S, const Decode3Group& G,
         if (is_imp) {
           distance = s.r0;
         } else if (dcode >= 0 && dcode < 16) {
-          const i32 sp = ldg(S.consts + 96 + dcode);
+          const i32 sp = B::ld(S.consts + 96 + dcode);
           const i32 k_idx = sp >> 4;
           const i32 ring = k_idx == 0 ? s.r0 : k_idx == 1 ? s.r1
                            : k_idx == 2 ? s.r2 : s.r3;
@@ -533,7 +543,7 @@ BROTLI_HD void decode3_lane(const Decode3Shared& S, const Decode3Group& G,
         } else if (dcode >= 16 && dcode < 16 + G.ndirect) {
           distance = dcode - 16 + 1;
         } else {  // long code: extra bits now if they fit, else spill a row
-          const i32 dxp = ldg(G.dx + clip(dcode, 0, DX3_N - 1));
+          const i32 dxp = B::ld(G.dx + clip(dcode, 0, DX3_N - 1));
           const i32 nbx = dxp >> 26, offx = dxp & 0x3FFFFFF;
           if (q + nbx > 32) {
             s.phase = P3_DIST_EX;
@@ -547,7 +557,7 @@ BROTLI_HD void decode3_lane(const Decode3Shared& S, const Decode3Group& G,
         break;
       }
       case P3_DIST_EX: {
-        const i32 dxp = ldg(G.dx + clip(s.dcode, 0, DX3_N - 1));
+        const i32 dxp = B::ld(G.dx + clip(s.dcode, 0, DX3_N - 1));
         const i32 nbx = dxp >> 26, offx = dxp & 0x3FFFFFF;
         const u32 xv = pk(s, q) & 0xFFFFFFu & low_mask((u32)nbx);
         q += nbx;
@@ -565,15 +575,14 @@ BROTLI_HD void decode3_lane(const Decode3Shared& S, const Decode3Group& G,
       const i32 pos = pos0 + (mlen - s.mbl);
       const i32 max_dist = pos < G.maxbw ? pos : G.maxbw;
       if (distance > max_dist) {
-        if (dict_ref(s, S, L, distance, max_dist)) tail_refill = s.mbl <= 0;
+        if (dict_ref(s, S, O, distance, max_dist)) tail_refill = s.mbl <= 0;
         if (s.err == 0) s.phase = s.mbl <= 0 ? P3_DONE : P3_CMD;
       } else if (distance < 1 || s.copy_len > s.mbl ||
                  (i64)L.hrb + s.wpos - distance < 0) {
         s.err |= ERR3_STREAM;
       } else {
         if (s.implicit != 1 && s.dcode > 0) push_ring(s, distance);
-        const u8* src = L.out + L.hrb - distance;
-        for (i32 j = 0; j < s.copy_len; ++j) put_byte(s, L, src[s.wpos]);
+        O.copy(s, distance);
         s.mbl -= s.copy_len;
         s.phase = s.mbl <= 0 ? P3_DONE : P3_CMD;
       }
@@ -588,9 +597,10 @@ BROTLI_HD void decode3_lane(const Decode3Shared& S, const Decode3Group& G,
     s.b2 = c2 >> mq;
     s.avail -= q;
     // the reference's DICT rows of a word that ends the metablock
-    if (tail_refill && s.avail <= 64 && s.widx < L.wpad) refill3(s, L);
+    if (tail_refill && s.avail <= 64 && s.widx < L.wpad) refill3(s, O.word(s));
   }
 
+  O.finish(s);
   i32* st = L.status;
   const i64 ts = L.tstride;
   st[0 * ts] = s.err;
@@ -604,6 +614,164 @@ BROTLI_HD void decode3_lane(const Decode3Shared& S, const Decode3Group& G,
   st[8 * ts] = s.r2;
   st[9 * ts] = s.r3;
   for (int r = 10; r < STATUS3_ROWS; ++r) st[r * ts] = 0;
+}
+
+// The direct backend (csrc/decode3.cu `decode3_direct_kernel`): words
+// read one at a time when the row rule asks for them, each byte stored
+// straight into the lane's slot, copies read back from the slot a byte at
+// a time, tables through the read-only cache.
+struct Direct3 {
+  const Decode3Lane& L;
+  template <typename T>
+  BROTLI_HD static T ld(const T* p) { return ldg(p); }
+  BROTLI_HD u32 word(const State3& s) const {
+    return ldg(L.words + (i64)s.widx * L.wstride);
+  }
+  BROTLI_HD void put(State3& s, u32 b) const { put_byte(s, L, b); }
+  BROTLI_HD void copy(State3& s, i32 distance) const {
+    const u8* src = L.out + L.hrb - distance;
+    for (i32 j = 0; j < s.copy_len; ++j) put_byte(s, L, src[s.wpos]);
+  }
+  BROTLI_HD void finish(const State3&) const {}
+};
+
+BROTLI_HD void decode3_lane(const Decode3Shared& S, const Decode3Group& G,
+                            const Decode3Lane& L) {
+  Direct3 O{L};
+  decode3_run(S, G, L, O);
+}
+
+// The windowed backend (csrc/decode3.cu `decode3_kernel`).
+//
+// The lane's bytes land in a window of W bytes (a power of two >= 64; in
+// shared memory on the card) that rings over the lane's slot: slot offset
+// g sits at window byte (g + a0) & (W - 1), where a0 is the slot's address
+// mod 16.  So a 16-byte-aligned run of the slot is an aligned run of the
+// window, and each such chunk goes to the slot in one 16-byte store as
+// soon as its last byte is written; runs shorter than a chunk (the slot's
+// first and last, and the end of what a far copy finds written) go byte
+// by byte.  `fl` is the slot offset up to which the slot holds the lane's
+// bytes: its history prefix from the start, the metablock's as they are
+// flushed.
+//
+// A copy reads the window when its distance is at most W - 16, and moves
+// 8 bytes a step when the distance is 8 or more (the 8 bytes it reads are
+// all written before it writes any); a shorter distance repeats the d
+// bytes before the copy.  A copy from further back (past the window, into
+// flushed output or the history prefix) first flushes every byte written,
+// then reads the slot in global memory, 8 bytes a step: each byte it reads
+// lies more than 48 bytes behind the next write, so in the flushed part.
+// The window starts with the last W bytes of the history prefix.
+//
+// Words come through the lane's look-ahead queue (queue.cuh).  Tables
+// are read with plain loads, from shared memory where the kernel staged
+// them, else from global memory.
+struct Ring3 {
+  const Decode3Lane& L;
+  WordQueue wq;
+  u8* win;
+  i32 wmask;  // W - 1
+  i32 a0;
+  i32 fl;
+
+  template <typename T>
+  BROTLI_HD static T ld(const T* p) { return *p; }
+
+  BROTLI_HD u8& at(i32 g) { return win[(g + a0) & wmask]; }
+
+  BROTLI_HD void start() {
+    const i32 w = wmask + 1;
+    for (i32 g = L.hrb > w ? L.hrb - w : 0; g < L.hrb; ++g) at(g) = L.out[g];
+    fl = L.hrb;
+    wq.start();
+  }
+
+  BROTLI_HD u32 word(const State3& s) { return wq.pop(s.widx); }
+
+  // the bytes [fl, e) into the slot
+  BROTLI_HD void flush_to(i32 e) {
+    const i32 stride = L.hrb + L.out_cap;
+    if (e > stride) e = stride;
+    if (e <= fl) return;
+    if (e - fl == 16 && ((fl + a0) & 15) == 0) {
+#if defined(__CUDA_ARCH__)
+      *(uint4*)(L.out + fl) = *(const uint4*)(win + ((fl + a0) & wmask));
+#else
+      for (i32 g = fl; g < e; ++g) L.out[g] = at(g);
+#endif
+    } else {
+      for (i32 g = fl; g < e; ++g) L.out[g] = at(g);
+    }
+    fl = e;
+  }
+
+  // after writing up to slot offset e: flush through the last chunk
+  // boundary at or before e
+  BROTLI_HD void flushed(i32 e) { flush_to(e - ((e + a0) & 15)); }
+
+  BROTLI_HD void put(State3& s, u32 b) {
+    const i32 g = L.hrb + s.wpos;
+    if (s.wpos < L.out_cap) at(g) = (u8)b;
+    s.wpos += 1;
+    s.p2 = s.p1;
+    s.p1 = (i32)(b & 0xFFu);
+    if (((g + 1 + a0) & 15) == 0) flush_to(g + 1);
+  }
+
+  // 8 bytes a step from `src(j)`, for a distance of 8 or more
+  template <class Src>
+  BROTLI_HD void copy8(i32 g0, i32 len, Src src) {
+    for (i32 j = 0; j < len; j += 8) {
+      const i32 n = len - j < 8 ? len - j : 8;
+      u8 b[8];
+#pragma unroll
+      for (i32 k = 0; k < 8; ++k)
+        if (k < n) b[k] = src(j + k);
+#pragma unroll
+      for (i32 k = 0; k < 8; ++k)
+        if (k < n) at(g0 + j + k) = b[k];
+      flushed(g0 + j + n);
+    }
+  }
+
+  // the caller checked 1 <= distance <= hrb + wpos and copy_len <= mbl
+  BROTLI_HD void copy(State3& s, i32 distance) {
+    const i32 len = s.copy_len;
+    if (len <= 0) return;
+    const i32 g0 = L.hrb + s.wpos;
+    const i32 src0 = g0 - distance;
+    if (distance > wmask + 1 - 16) {
+      flush_to(g0);
+      const u8* out = L.out;
+      copy8(g0, len, [&](i32 j) { return out[src0 + j]; });
+    } else if (distance >= 8) {
+      copy8(g0, len, [&](i32 j) { return at(src0 + j); });
+    } else {
+      u64 pat = 0;
+      for (i32 k = 0; k < distance; ++k) pat |= (u64)at(src0 + k) << (8 * k);
+      i32 k = 0;
+      for (i32 j = 0; j < len; ++j) {
+        at(g0 + j) = (u8)(pat >> (8 * k));
+        k = k + 1 == distance ? 0 : k + 1;
+        if (((g0 + j + 1 + a0) & 15) == 0) flush_to(g0 + j + 1);
+      }
+    }
+    s.p2 = len >= 2 ? at(g0 + len - 2) : s.p1;
+    s.p1 = at(g0 + len - 1);
+    s.wpos += len;
+  }
+
+  BROTLI_HD void finish(const State3& s) {
+    flush_to(L.hrb + s.wpos);
+    wq.drain();
+  }
+};
+
+BROTLI_HD void decode3_lane_windowed(const Decode3Shared& S,
+                                     const Decode3Group& G,
+                                     const Decode3Lane& L, Ring3& O) {
+  O.start();
+  decode3_run(S, G, L, O);
 }
 
 }  // namespace brotli_torch

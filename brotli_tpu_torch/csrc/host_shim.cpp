@@ -1,11 +1,12 @@
 // Host build of the kernels' per-lane logic (decode2.cuh, decode3.cuh,
-// resolve.cuh, pack.cuh, parse.cuh, probe.cuh), compiled with g++ so the
-// CPU tests can hold the exact code the CUDA kernels run against the plain
-// PyTorch versions.  Test-only: the encode and decode paths never call it.
+// queue.cuh, resolve.cuh, pack.cuh, parse.cuh, probe.cuh), compiled with
+// g++ so the CPU tests can hold the exact code the CUDA kernels run against
+// the plain PyTorch versions.  Test-only: the encode and decode paths never call it.
 // The argument layouts are those of the CUDA entry points in decode2.cu,
 // decode3.cu, resolve.cu, pack.cu, parse.cu and probe.cu, without the
 // stream.
 #include <algorithm>
+#include <cstdint>
 #include <vector>
 
 #include "decode2.cuh"
@@ -17,25 +18,36 @@
 
 using namespace brotli_torch;
 
-extern "C" int brotli_torch_decode2_host(
+static bool decode2_host_ok(int n_lanes, int lit_k, int cmd_k, int dist_k) {
+  return n_lanes > 0 && n_lanes % 1024 == 0 && lit_k >= 2 && lit_k <= LIT_K &&
+         cmd_k >= 2 && cmd_k <= CMD_K && dist_k >= 2 && dist_k <= DIST_K;
+}
+
+static Decode2Tables decode2_tables(const void* lit, const void* cmd,
+                                    const void* dist, const void* dx,
+                                    const void* consts, int g, int lit_k,
+                                    int cmd_k, int dist_k) {
+  return Decode2Tables{(const i32*)lit + g * lit_k * 128,
+                       (const i32*)cmd + g * cmd_k * 128,
+                       (const i32*)dist + g * dist_k * 128,
+                       (const i32*)dx, (const i32*)consts,
+                       lit_k, cmd_k, dist_k};
+}
+
+// The direct kernel of decode2.cu, lane by lane.
+extern "C" int brotli_torch_decode2_direct_host(
     const void* wt, const void* lit, const void* cmd, const void* dist,
     const void* dx, const void* consts, const void* start_bit,
     const void* mlen, void* tok, void* count, void* phase, void* widx,
     int n_lanes, int wpad, int cap, int npostfix, int ndirect, int maxbw,
     int lit_k, int cmd_k, int dist_k) {
-  if (n_lanes <= 0 || n_lanes % 1024 != 0 || lit_k < 2 || lit_k > LIT_K ||
-      cmd_k < 2 || cmd_k > CMD_K || dist_k < 2 || dist_k > DIST_K)
-    return 1;
+  if (!decode2_host_ok(n_lanes, lit_k, cmd_k, dist_k)) return 1;
   const Decode2Params P{npostfix, ndirect, maxbw, wpad, cap};
   const i32* sb = (const i32*)start_bit;
   const i32* ml = (const i32*)mlen;
   for (int lane = 0; lane < n_lanes; ++lane) {
-    const int g = lane / 1024;
-    const Decode2Tables T{(const i32*)lit + g * lit_k * 128,
-                          (const i32*)cmd + g * cmd_k * 128,
-                          (const i32*)dist + g * dist_k * 128,
-                          (const i32*)dx, (const i32*)consts,
-                          lit_k, cmd_k, dist_k};
+    const Decode2Tables T = decode2_tables(lit, cmd, dist, dx, consts,
+                                           lane / 1024, lit_k, cmd_k, dist_k);
     const Decode2Result r = decode2_lane(T, P, (const u32*)wt + lane, n_lanes,
                                          sb[lane], ml[lane],
                                          (u32*)tok + lane, n_lanes);
@@ -46,17 +58,45 @@ extern "C" int brotli_torch_decode2_host(
   return 0;
 }
 
-extern "C" int brotli_torch_decode3_host(
+// The queued kernel of decode2.cu, lane by lane, each lane's queue in a
+// host array; `lpw` is checked as the kernel checks it.
+extern "C" int brotli_torch_decode2_host(
     const void* wt, const void* lit, const void* cmd, const void* dist,
-    const void* bsw, const void* cmap, const void* dx, const void* consts,
-    const void* lut, const void* tfm, const void* dict, const void* tfs,
-    const void* cdict, const void* cfg, const void* scal, void* out,
-    void* status, int n_lanes, int wpad, int out_cap, int hrb, int dict_n,
-    int tfs_n, int cd_n, int cd_t, int use_dict) {
-  if (n_lanes <= 0 || n_lanes % 1024 != 0 || wpad < 1 || out_cap < 1 ||
-      hrb < 0 || dict_n < 1 || tfs_n < 1 || cd_n < 1 || cd_t < 0 ||
-      cd_t > cd_n)
+    const void* dx, const void* consts, const void* start_bit,
+    const void* mlen, void* tok, void* count, void* phase, void* widx,
+    int n_lanes, int wpad, int cap, int npostfix, int ndirect, int maxbw,
+    int lit_k, int cmd_k, int dist_k, int lpw) {
+  if (!decode2_host_ok(n_lanes, lit_k, cmd_k, dist_k) || lpw < 1 ||
+      lpw > 32 || (lpw & (lpw - 1)) != 0)
     return 1;
+  const Decode2Params P{npostfix, ndirect, maxbw, wpad, cap};
+  const i32* sb = (const i32*)start_bit;
+  const i32* ml = (const i32*)mlen;
+  u32 q[QUEUE_R];
+  for (int lane = 0; lane < n_lanes; ++lane) {
+    const Decode2Tables T = decode2_tables(lit, cmd, dist, dx, consts,
+                                           lane / 1024, lit_k, cmd_k, dist_k);
+    Queued2 O{WordQueue{(const u32*)wt + lane, n_lanes, wpad, q, 1},
+              (u32*)tok + lane, n_lanes};
+    const Decode2Result r = decode2_lane_queued(T, P, sb[lane], ml[lane], O);
+    ((i32*)count)[lane] = r.count;
+    ((i32*)phase)[lane] = r.phase;
+    ((i32*)widx)[lane] = r.widx;
+  }
+  return 0;
+}
+
+static bool decode3_host_ok(int n_lanes, int wpad, int out_cap, int hrb,
+                            int dict_n, int tfs_n, int cd_n, int cd_t) {
+  return n_lanes > 0 && n_lanes % 1024 == 0 && wpad >= 1 && out_cap >= 1 &&
+         hrb >= 0 && dict_n >= 1 && tfs_n >= 1 && cd_n >= 1 && cd_t >= 0 &&
+         cd_t <= cd_n;
+}
+
+static Decode3Shared decode3_host_shared(
+    const void* consts, const void* lut, const void* tfm, const void* dict,
+    const void* tfs, const void* cdict, int dict_n, int tfs_n, int cd_n,
+    int cd_t, int use_dict) {
   Decode3Shared S{};
   S.consts = (const i32*)consts;
   S.lut = (const i32*)lut;
@@ -69,6 +109,21 @@ extern "C" int brotli_torch_decode3_host(
   S.cd_n = cd_n;
   S.cd_t = cd_t;
   S.use_dict = use_dict != 0;
+  return S;
+}
+
+// The direct kernel of decode3.cu, lane by lane.
+extern "C" int brotli_torch_decode3_direct_host(
+    const void* wt, const void* lit, const void* cmd, const void* dist,
+    const void* bsw, const void* cmap, const void* dx, const void* consts,
+    const void* lut, const void* tfm, const void* dict, const void* tfs,
+    const void* cdict, const void* cfg, const void* scal, void* out,
+    void* status, int n_lanes, int wpad, int out_cap, int hrb, int dict_n,
+    int tfs_n, int cd_n, int cd_t, int use_dict) {
+  if (!decode3_host_ok(n_lanes, wpad, out_cap, hrb, dict_n, tfs_n, cd_n, cd_t))
+    return 1;
+  const Decode3Shared S = decode3_host_shared(
+      consts, lut, tfm, dict, tfs, cdict, dict_n, tfs_n, cd_n, cd_t, use_dict);
   const i64 stride = (i64)hrb + out_cap;
   for (int lane = 0; lane < n_lanes; ++lane) {
     const Decode3Group G = make_group3(
@@ -80,6 +135,47 @@ extern "C" int brotli_torch_decode3_host(
                         (u8*)out + (i64)lane * stride, hrb, out_cap,
                         (i32*)status + lane, n_lanes};
     decode3_lane(S, G, L);
+  }
+  return 0;
+}
+
+// The windowed kernel of decode3.cu, lane by lane: each lane's window of
+// `win` bytes and its queue in host arrays.  `lpw` and `tab_ints` are
+// checked as the kernel checks them; where the kernel keeps a table does
+// not change what it reads.
+extern "C" int brotli_torch_decode3_host(
+    const void* wt, const void* lit, const void* cmd, const void* dist,
+    const void* bsw, const void* cmap, const void* dx, const void* consts,
+    const void* lut, const void* tfm, const void* dict, const void* tfs,
+    const void* cdict, const void* cfg, const void* scal, void* out,
+    void* status, int n_lanes, int wpad, int out_cap, int hrb, int dict_n,
+    int tfs_n, int cd_n, int cd_t, int use_dict, int lpw, int win,
+    int tab_ints) {
+  if (!decode3_host_ok(n_lanes, wpad, out_cap, hrb, dict_n, tfs_n, cd_n,
+                       cd_t) ||
+      lpw < 1 || lpw > 32 || (lpw & (lpw - 1)) != 0 || win < 64 ||
+      (win & (win - 1)) != 0 || tab_ints < 0 || ((uintptr_t)out & 15) != 0)
+    return 1;
+  const Decode3Shared S = decode3_host_shared(
+      consts, lut, tfm, dict, tfs, cdict, dict_n, tfs_n, cd_n, cd_t, use_dict);
+  const i64 stride = (i64)hrb + out_cap;
+  std::vector<u8> window((std::size_t)win);
+  u32 q[QUEUE_R];
+  for (int lane = 0; lane < n_lanes; ++lane) {
+    const Decode3Group G = make_group3(
+        (const i32*)cfg + (lane / 1024) * NCFG3, (const i32*)lit,
+        (const i32*)cmd, (const i32*)dist, (const i32*)bsw, (const i32*)cmap,
+        (const i32*)dx);
+    u8* slot = (u8*)out + (i64)lane * stride;
+    const Decode3Lane L{nullptr, n_lanes, wpad, (const i32*)scal + lane,
+                        n_lanes, slot, hrb, out_cap, (i32*)status + lane,
+                        n_lanes};
+    // a window byte read before the lane wrote it would show as 0xA5 in
+    // the lane's bytes, which the tests hold against the plain version
+    std::fill(window.begin(), window.end(), (u8)0xA5);
+    Ring3 O{L, WordQueue{(const u32*)wt + lane, n_lanes, wpad, q, 1},
+            window.data(), win - 1, (i32)((uintptr_t)slot & 15), 0};
+    decode3_lane_windowed(S, G, L, O);
   }
   return 0;
 }

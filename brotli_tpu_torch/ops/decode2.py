@@ -7,8 +7,11 @@ into a `SharedBatch` (numpy), exactly as for the JAX kernel.
 `batch_to_torch` turns that staging into the port's tensors, and the device
 half runs two kernels:
 
-1. `entropy_decode` (csrc/decode2.cu): bits -> v2 tokens, one thread per
-   stream, the group's tables in shared memory;
+1. `entropy_decode` (csrc/decode2.cu `decode2_kernel`): bits -> v2
+   tokens, one thread a stream and a few streams a warp, the group's tables
+   in shared memory, each stream's words through a look-ahead queue
+   (`entropy_decode_direct` launches the first form of the kernel, one
+   stream a thread in blocks of 128, kept beside it for comparison);
 2. `resolve_tokens` (ops/resolve.py, csrc/resolve.cu): tokens -> bytes.
 
 `decode_batch_device_e2e` drives both and re-decodes on the host any lane
@@ -46,7 +49,6 @@ from .preflight2 import (
     INS_EX,
     LIT,
     LIT_K,
-    MAX_GROUPS,
     NSTREAM,
     TAG_COPY,
     TAG_DIST,
@@ -58,8 +60,18 @@ from .preflight2 import (
 )
 from .resolve import resolve_tokens, unpack_resolved
 
-# Launches of the CUDA kernel, counted by the wrapper where it launches.
+# Launches of the CUDA kernels, counted by the wrappers where they launch:
+# decode2_kernel (the main path's) and decode2_direct_kernel.
 KERNEL_LAUNCHES = 0
+DIRECT_LAUNCHES = 0
+
+# The port's own cap on the groups of 1024 streams one batch stages, set
+# from an H100 sweep of the kernels at 12, 16, 24 and 32 groups (PERF.md);
+# MAX_GROUPS (ops/preflight2.py) is the reference's v5e figure.
+GROUP_CAP = 32
+
+# warps the lane map aims to put on each SM (ops/decode3.py shares it)
+WARPS_PER_SM = 12
 
 DX_N = DX_K * 128   # packed distance LUT, 544 entries used
 CONSTS_N = 128      # length and short-distance LUT, SharedBatch.consts' row
@@ -190,43 +202,91 @@ def _c_args(tb: TorchBatch, outs) -> list:
                tb.maxbw, tb.lit_k, tb.cmd_k, tb.dist_k])
 
 
+def lanes_per_warp(n_lanes: int, sms: int) -> int:
+    """Lanes a warp of the queued / windowed kernels: the power of two (at
+    most 32) that puts about WARPS_PER_SM warps of lanes on each of `sms`
+    SMs, so a warp serializes the phases of few lanes while every SM holds
+    enough warps to hide a row's latencies (the sweep in
+    tools/decode_causes.py)."""
+    want = max(1, -(-n_lanes // (sms * WARPS_PER_SM)))
+    return min(32, 1 << (want - 1).bit_length())
+
+
+def sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _launch(tb: TorchBatch, entry: str, extra: list, what: str):
+    """Launch `entry` of the CUDA library on the batch; the outputs."""
+    from ..build import kernels_lib
+
+    outs = _alloc_outputs(tb)
+    with torch.cuda.device(tb.device):
+        rc = getattr(kernels_lib(), entry)(
+            *_c_args(tb, outs), *extra,
+            torch.cuda.current_stream(tb.device).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"{what} launch failed: cudaError {rc}")
+    return outs
+
+
+def _on_card(tb: TorchBatch) -> bool:
+    """False for CPU tensors (which take the plain version); raises on a
+    device that is neither."""
+    _check_batch(tb)
+    if tb.device.type == "cpu":
+        return False
+    if tb.device.type != "cuda":
+        raise ValueError(f"unsupported device {tb.device}")
+    return True
+
+
 def entropy_decode(tb: TorchBatch):
     """Decode every lane's bits into v2 tokens.
 
     Returns (tok (cap, n_lanes) int32, count, phase, widx (n_lanes,) int32)
     on the batch's device.  CPU tensors take entropy_decode_ref; CUDA
-    tensors launch csrc/decode2.cu.
+    tensors launch csrc/decode2.cu `decode2_kernel` at lanes_per_warp
+    lanes a warp for the batch and the card.
     """
     global KERNEL_LAUNCHES
-    _check_batch(tb)
-    if tb.device.type == "cpu":
+    if not _on_card(tb):
         return entropy_decode_ref(tb)
-    if tb.device.type != "cuda":
-        raise ValueError(f"unsupported device {tb.device}")
-    from ..build import kernels_lib
-
-    outs = _alloc_outputs(tb)
-    with torch.cuda.device(tb.device):
-        rc = kernels_lib().brotli_torch_decode2(
-            *_c_args(tb, outs),
-            torch.cuda.current_stream(tb.device).cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"entropy kernel launch failed: cudaError {rc}")
+    lanes = lanes_per_warp(tb.n_lanes, sm_count(tb.device))
+    outs = _launch(tb, "brotli_torch_decode2", [lanes], "entropy kernel")
     KERNEL_LAUNCHES += 1
     return outs
 
 
-def entropy_decode_host(tb: TorchBatch):
+def entropy_decode_direct(tb: TorchBatch):
+    """entropy_decode through decode2_direct_kernel (one lane a thread,
+    blocks of 128, each word loaded when the row rule asks for it); CPU
+    tensors take entropy_decode_ref."""
+    global DIRECT_LAUNCHES
+    if not _on_card(tb):
+        return entropy_decode_ref(tb)
+    outs = _launch(tb, "brotli_torch_decode2_direct", [],
+                   "direct entropy kernel")
+    DIRECT_LAUNCHES += 1
+    return outs
+
+
+def entropy_decode_host(tb: TorchBatch, lanes: int = 4, direct: bool = False):
     """csrc/decode2.cuh's per-lane code built for the CPU (build.host_lib):
-    for the tests, which hold it against entropy_decode_ref."""
+    the queued kernel's (`lanes` is checked as the kernel checks it), or
+    with `direct` the direct kernel's.  For the tests, which hold it
+    against entropy_decode_ref."""
     from ..build import host_lib
 
     _check_batch(tb)
     if tb.device.type != "cpu":
         raise ValueError("the host shim takes CPU tensors")
     outs = _alloc_outputs(tb)
-    if host_lib().brotli_torch_decode2_host(*_c_args(tb, outs)) != 0:
+    lib = host_lib()
+    rc = (lib.brotli_torch_decode2_direct_host(*_c_args(tb, outs)) if direct
+          else lib.brotli_torch_decode2_host(*_c_args(tb, outs), lanes))
+    if rc != 0:
         raise ValueError("host shim refused the batch")
     return outs
 
@@ -562,15 +622,17 @@ def decode_batch_device_e2e(streams: list[bytes], *,
     preflight_shared (rate-sorted), per-group tables through
     preflight_binned.  Lanes that end in a phase other than DONE, read past
     their own words, or carry resolve flags are re-decoded by
-    the host decoder; a batch neither preflight accepts is host-decoded
-    whole.  Every such lane counts in fallback_stats().
+    the host decoder; a batch neither preflight accepts (more streams than
+    `groups` groups hold, GROUP_CAP groups by default; more than GROUP_CAP
+    groups of bins) is host-decoded whole.  Every such lane counts in
+    fallback_stats().
     """
     dev = resolve_device(device)
     if groups is None:
-        groups = min(MAX_GROUPS, -(-len(streams) // NSTREAM))
+        groups = min(GROUP_CAP, -(-len(streams) // NSTREAM))
     batch = preflight_shared(streams, groups=groups, rate_sort=True)
     if batch is None:
-        binned = preflight_binned(streams)
+        binned = preflight_binned(streams, max_groups=GROUP_CAP)
         if binned is not None:
             batch = binned[0]
     if batch is None:

@@ -5,8 +5,11 @@ The host half is the port's copy of the reference's (ops/preflight3.py):
 tables and bin the streams by table signature into groups of 1024 lanes
 (`V3Batch`, numpy), exactly as for the JAX kernel.  `batch_to_torch_v3`
 turns that staging into the port's tensors and `decode3` runs one kernel
-(csrc/decode3.cu) that decodes every lane's metablock, entropy and LZ
-together, into the lane's own output slot.
+(csrc/decode3.cu `decode3_kernel`) that decodes every lane's metablock,
+entropy and LZ together, through a window in shared memory into the
+lane's own output slot (`launch_config` sizes its lane map, window and
+table staging from the card).  `decode3_direct` launches the first form
+of the kernel, kept beside it for comparison.
 
 Drivers: `decode_batch_v3` (single-metablock streams) and
 `decode_batch_v3_full` (any stream: the host walks the metablock headers and
@@ -37,7 +40,7 @@ from ..decode.engine import (
     _read_metablock_length,
 )
 from ..device import resolve_device
-from .decode2 import _note_fallbacks, _wrap32
+from .decode2 import _note_fallbacks, _wrap32, lanes_per_warp, sm_count
 from .preflight3 import (
     BLCH,
     BSW2,
@@ -73,8 +76,20 @@ from .preflight3 import (
     preflight_v3,
 )
 
-# Launches of the CUDA kernel, counted by the wrapper where it launches.
+# Launches of the CUDA kernels, counted by the wrappers where they launch:
+# decode3_kernel (the main path's) and decode3_direct_kernel.
 KERNEL_LAUNCHES = 0
+DIRECT_LAUNCHES = 0
+
+# The port's own default cap on the table groups of one v3 batch, set from
+# an H100 sweep of the kernel at 12, 16, 24 and 32 groups (PERF.md); the
+# reference's max_groups=4 is a VMEM figure of its TPU kernel.
+GROUP_CAP_V3 = 32
+
+QUEUE_R = 8                # csrc/queue.cuh: look-ahead slots a lane
+TABLE_BUDGET = 12 * 1024   # table entries a block may stage (48 KB)
+WINDOW_MIN, WINDOW_MAX = 64, 16384
+WINDOW_PREF = 1024         # the window launch_config keeps before tables
 
 # columns of a group's config row (csrc/decode3.cuh Cfg3)
 (CFG_NL, CFG_NC, CFG_ND, CFG_NBT0, CFG_NBT1, CFG_NBT2, CFG_NPOSTFIX,
@@ -321,43 +336,148 @@ def _c_args(tb: V3TorchBatch, out, status, use_dict: bool) -> list:
                tb.tfs.numel(), tb.cdict.numel(), tb.cd_t, int(use_dict)])
 
 
+def _table_sizes(cfg: np.ndarray) -> np.ndarray:
+    """(G, 8) entries of each table decode3_kernel stages, in its order
+    (csrc/decode3.cu): consts, the maps, the context LUT, the distance LUT,
+    the command and distance trees, the block-switch trees where a
+    category switches, the literal trees."""
+    c = np.asarray(cfg, np.int64).reshape(-1, NCFG)
+    switches = (c[:, [CFG_NBT0, CFG_NBT1, CFG_NBT2]] > 1).any(axis=1)
+    ones = np.ones(len(c), np.int64)
+    return np.stack([256 * ones,
+                     (c[:, CFG_LCMCH] + c[:, CFG_DCMCH] + 1) * 128,
+                     2048 * ones, DX_N * ones, c[:, CFG_NC] * CCH * 128,
+                     c[:, CFG_ND] * DCH * 128, np.where(switches, BSW_N, 0),
+                     c[:, CFG_NL] * LCH * 128], axis=1)
+
+
+def table_ints(cfg: np.ndarray, cap: int | None = None) -> int:
+    """The table entries decode3_kernel stages for the largest group of a
+    config, each table whole while the running sum stays within `cap` (as
+    the kernel stages them; no cap: all of them)."""
+    sizes = _table_sizes(cfg)
+    if cap is None:
+        return int(sizes.sum(axis=1).max()) if len(sizes) else 0
+    used = np.zeros(len(sizes), np.int64)
+    for k in range(sizes.shape[1]):
+        n = sizes[:, k]
+        used += np.where(used + n <= cap, n, 0)
+    return int(used.max()) if len(used) else 0
+
+
+def launch_config(tb: V3TorchBatch, sms: int,
+                  smem_sm: int) -> tuple[int, int, int]:
+    """(lanes a warp, window bytes a lane, table entries a block) for
+    decode3_kernel on a card of `sms` SMs with `smem_sm` bytes of shared
+    memory each: lanes_per_warp lanes a warp, and the window and tables
+    `_fit` gives them."""
+    return _fit(tb, lanes_per_warp(tb.n_lanes, sms), sms, smem_sm)
+
+
+def _fit(tb: V3TorchBatch, lpw: int, sms: int, smem_sm: int,
+         window: int | None = None) -> tuple[int, int, int]:
+    """launch_config at `lpw` lanes a warp (and a `window`-byte window, if
+    one is given: the sweeps of tools/decode_causes.py and the card-only
+    tests).  The blocks an SM must hold for one wave share its shared
+    memory, less the 1 KB each block's runtime reserve takes.  The
+    look-ahead queues take theirs.  Where the rest holds a window of
+    WINDOW_PREF bytes a lane (or what a slot needs, if less), the window
+    keeps that and the tables take what is left, up to TABLE_BUDGET; where
+    it does not, the tables come first.  The window grows into the rest,
+    as a power of two in [WINDOW_MIN, WINDOW_MAX] and no larger than a
+    slot needs.  (H100 runs of the `[caps]` sweep, PERF.md section 6: at
+    32 groups, where no 1 KB window fits, staging the tables beat a bare
+    512 B window.)"""
+    lpb = 4 * lpw
+    per_sm = -(-(tb.n_lanes // lpb) // sms)
+    room = min(smem_sm, smem_sm // per_sm) - 1024 - 4 * QUEUE_R * lpb
+    slot = 1 << max(0, (tb.hrb + tb.out_cap - 1).bit_length())
+    cap = TABLE_BUDGET
+    keep = min(WINDOW_PREF, slot) * lpb
+    if window is None and room >= keep:
+        cap = min(cap, (room - keep) // 4)
+    tab = table_ints(tb.cfg_host, cap)
+    if window is None:
+        per_lane = max(WINDOW_MIN, (room - 4 * tab) // lpb)
+        window = min(WINDOW_MAX, slot, 1 << (per_lane.bit_length() - 1))
+        window = max(WINDOW_MIN, window)
+    return lpw, window, tab
+
+
 def decode3(tb: V3TorchBatch, use_dict: bool = True):
     """Decode every lane's metablock.
 
     Returns (out (n_lanes, hrb + out_cap) uint8, status (16, n_lanes)
     int32) on the batch's device.  CPU tensors take decode3_ref; CUDA
-    tensors launch csrc/decode3.cu."""
+    tensors launch csrc/decode3.cu `decode3_kernel` as launch_config sizes
+    it."""
     global KERNEL_LAUNCHES
+    if not _on_card(tb):
+        return decode3_ref(tb, use_dict)
+    props = torch.cuda.get_device_properties(tb.device)
+    cfg = launch_config(tb, sm_count(tb.device),
+                        props.shared_memory_per_multiprocessor)
+    out = _launch(tb, use_dict, "brotli_torch_decode3", list(cfg),
+                  "decode3 kernel")
+    KERNEL_LAUNCHES += 1
+    return out
+
+
+def decode3_direct(tb: V3TorchBatch, use_dict: bool = True):
+    """decode3 through decode3_direct_kernel (one lane a thread, blocks of
+    128, bytes straight into the slot); CPU tensors take decode3_ref."""
+    global DIRECT_LAUNCHES
+    if not _on_card(tb):
+        return decode3_ref(tb, use_dict)
+    out = _launch(tb, use_dict, "brotli_torch_decode3_direct", [],
+                  "direct decode3 kernel")
+    DIRECT_LAUNCHES += 1
+    return out
+
+
+def _on_card(tb: V3TorchBatch) -> bool:
     _check_batch(tb)
     if tb.device.type == "cpu":
-        return decode3_ref(tb, use_dict)
+        return False
     if tb.device.type != "cuda":
         raise ValueError(f"unsupported device {tb.device}")
+    return True
+
+
+def _launch(tb: V3TorchBatch, use_dict: bool, entry: str, extra: list,
+            what: str):
     from ..build import kernels_lib
 
     out, status = _alloc_outputs(tb)
     with torch.cuda.device(tb.device):
-        rc = kernels_lib().brotli_torch_decode3(
-            *_c_args(tb, out, status, use_dict),
+        rc = getattr(kernels_lib(), entry)(
+            *_c_args(tb, out, status, use_dict), *extra,
             torch.cuda.current_stream(tb.device).cuda_stream,
         )
     if rc != 0:
-        raise RuntimeError(f"decode3 kernel launch failed: cudaError {rc}")
-    KERNEL_LAUNCHES += 1
+        raise RuntimeError(f"{what} launch failed: cudaError {rc}")
     return out, status
 
 
-def decode3_host(tb: V3TorchBatch, use_dict: bool = True):
+def decode3_host(tb: V3TorchBatch, use_dict: bool = True, lanes: int = 4,
+                 window: int = 2048, direct: bool = False):
     """csrc/decode3.cuh's per-lane code built for the CPU (build.host_lib):
-    for the tests, which hold it against decode3_ref."""
+    the windowed kernel's with a `window`-byte window (`lanes` is checked
+    as the kernel checks it), or with `direct` the direct kernel's.  For
+    the tests, which hold it against decode3_ref."""
     from ..build import host_lib
 
     _check_batch(tb)
     if tb.device.type != "cpu":
         raise ValueError("the host shim takes CPU tensors")
     out, status = _alloc_outputs(tb)
-    if host_lib().brotli_torch_decode3_host(
-            *_c_args(tb, out, status, use_dict)) != 0:
+    args = _c_args(tb, out, status, use_dict)
+    lib = host_lib()
+    rc = (lib.brotli_torch_decode3_direct_host(*args) if direct else
+          lib.brotli_torch_decode3_host(*args, lanes, window,
+                                        table_ints(tb.cfg_host,
+                                                   TABLE_BUDGET)))
+    if rc != 0:
         raise ValueError("host shim refused the batch")
     return out, status
 
@@ -843,7 +963,7 @@ def _lanes(batch: V3Batch, out: torch.Tensor, status: torch.Tensor):
 
 def decode_batch_v3(streams: list[bytes], *,
                     device: torch.device | str = "cuda",
-                    use_dict: bool = True, max_groups: int = 4,
+                    use_dict: bool = True, max_groups: int = GROUP_CAP_V3,
                     custom_dictionary=None, dict_dev=None) -> list[bytes]:
     """Full-format decode of single-metablock streams on `device`.
 
@@ -883,7 +1003,8 @@ def decode_batch_v3(streams: list[bytes], *,
 
 def decode_batch_v3_full(streams: list[bytes], *,
                          device: torch.device | str = "cuda",
-                         use_dict: bool = True, max_groups: int = 4,
+                         use_dict: bool = True,
+                         max_groups: int = GROUP_CAP_V3,
                          custom_dictionary=None,
                          dict_dev=None) -> list[bytes]:
     """Decode arbitrary (multi-metablock) Brotli streams on `device`.

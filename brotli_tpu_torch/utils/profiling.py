@@ -117,7 +117,7 @@ def profile_e2e_decode(streams: list[bytes],
 
     dev = _require_card(device)
     if groups is None:
-        groups = min(D.MAX_GROUPS, -(-len(streams) // D.NSTREAM))
+        groups = min(D.GROUP_CAP, -(-len(streams) // D.NSTREAM))
     t0 = time.perf_counter()
     batch = D.preflight_shared(streams, groups=groups, rate_sort=True)
     pre_s = time.perf_counter() - t0

@@ -5,16 +5,22 @@
 
 Phases, in order; any failure raises and the exit code is non-zero:
 
-1. build  -- nvcc compiles brotli_tpu_torch/csrc/*.cu (sm_90a) at first use;
+1. build  -- nvcc compiles brotli_tpu_torch/csrc/*.cu (sm_90a) at first use,
+   and prints nvcc's registers, stack and spills of the queued and direct
+   entropy kernels and of the windowed and direct v3 kernels;
 2. kernel == plain version on the card, bit for bit (tokens, counts,
    phases, words consumed, bytes, flags), one group of 1024 x 1 KB streams;
+   the direct entropy kernel too;
 3. main path -- decode_batch_device_e2e(device="cuda") on the bench's e2e
    shape, 4 groups x 1024 streams x 8192 B = 33.6 MB, must equal the input
-   with no host fallback, and both kernels must have launched;
+   with no host fallback, and both kernels must have launched (the direct
+   entropy kernel never);
 4. far distances -- 256 x 8 KB streams encoded without a distance cap (the
    reference's resolve ring flags these) decode with no fallback;
-5. times with CUDA events: each kernel on the staged main-path batch and
-   its plain PyTorch version at the same shape;
+5. times with CUDA events: each kernel on the staged main-path batch (the
+   entropy kernel in turns with the direct one: direct, new, new, direct)
+   and its plain PyTorch version at the same shape, held bit for bit
+   against both entropy kernels;
 6. enc kernels == plain versions on the card, bit for bit: both pack
    kernels (the segmented one and the serial one; words, widx, avail, tail
    limbs, ovf), 1024 x 2 KB, for the three literal-tree branches (one
@@ -45,7 +51,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
    trees, 2 table groups), host q9/q11 encodes with tree groups and block
    switching in all three categories, one static-dictionary word per
    transform (121) over a group, the compound-dictionary streams, and a
-   batch with one poisoned and one truncated lane (both must flag);
+   batch with one poisoned and one truncated lane (both must flag); the
+   direct v3 kernel on each too; then the host q9/q11 encodes 256 times
+   each (1024 lanes, copies from further back than the v3 cell's), the
+   windowed kernel equal to the direct one and timed in turns with it;
 12. v3 main path -- the reference bench's full-format shape: 6 groups x
    1024 x 4096 B = 25,165,824 B encoded on the card by encode_device_batch
    (lit_ctx_trees=8), decoded by decode_batch_v3(device="cuda",
@@ -53,20 +62,32 @@ Phases, in order; any failure raises and the exit code is non-zero:
    no fallback, the decode3 kernel launched on the staged dictionary;
    host clock of the call with the preflight apart;
 13. v3 times with CUDA events on the staged main batch: the kernel at
-   use_dict=False (the bench's timed setting) and True, the output
-   allocation and fill alone, and the plain version once, equal to it;
+   use_dict=False (the bench's timed setting; in turns with the direct
+   kernel) and True, the output allocation and fill alone, and the plain
+   version once, equal to both kernels;
 14. v3 full -- decode_batch_v3_full(device="cuda") on 1024 lanes of three
    64 KB streams (a streaming Encoder(quality=5, lgwin=18) fed 1 KB updates
    in 16 KB metablocks, a spliced parallel_encode stream, an uncompressed
    one):
-   equal to the input, no fallback, one kernel launch per round;
-15. probes -- run_probe_v2 at every level and run_probe_v2b at every
+   equal to the input, no fallback, one kernel launch per round, the
+   direct kernel never; then each round's batch through both kernels,
+   equal, timed in turns;
+15. caps -- the group-cap sweep at 12, 16, 24 and 32 groups: v2, the
+   main-path streams G times, both v2 kernels; v3, the staged v3 cell
+   tiled to G groups, decode3; kernel times, MB/s, peak device memory,
+   bytes equal to the input on the card and no flagged lane;
+   then sparse batches the caps put on the card, 32 streams whose tables
+   all differ (32 groups of one live lane each: v2 8 KB, v3 32 KB, v3 full
+   64 KB in four metablocks), through the drivers at the port's caps:
+   equal to the input, no fallback, the call's host clock, peak device
+   memory and kernel times, against the host decoder on the same streams;
+16. probes -- run_probe_v2 at every level and run_probe_v2b at every
    variant of the TPU scripts, launches counted from 0; each kernel's
    outputs held against its plain version bit for bit; ns per row;
-16. profile -- profile_e2e_decode on the main-path batch: per-phase times
+17. profile -- profile_e2e_decode on the main-path batch: per-phase times
    and the device's busy share from torch.profiler (Chrome trace in
    brotli_tpu_torch/build/trace/);
-17. entry() -- the port's entry point called once and synchronised.
+18. entry() -- the port's entry point called once and synchronised.
 
 Kernel times come from utils.benchmarks.time_device_fn (CUDA events) and
 the encoder's stage times from utils.profiling.profile_device_encode,
@@ -177,6 +198,20 @@ def plain_ms(fn) -> float:
     return time_device_fn(fn, rep=1, samples=1, warm_up=False) * 1e3
 
 
+def in_turns(new, old) -> dict:
+    """device_ms of two versions of a kernel in turns (old, new, new, old):
+    the means and the four times."""
+    o1, n1, n2, o2 = device_ms(old), device_ms(new), device_ms(new), device_ms(old)
+    return {"new": (n1 + n2) / 2, "old": (o1 + o2) / 2, "turns": (o1, n1, n2, o2)}
+
+
+def turns_str(t: dict) -> str:
+    o1, n1, n2, o2 = t["turns"]
+    return (f"{t['new']:.4f} ms (direct kernel {t['old']:.4f} ms, "
+            f"{t['old'] / t['new']:.2f}x; in turns direct {o1:.4f}, new "
+            f"{n1:.4f}, new {n2:.4f}, direct {o2:.4f})")
+
+
 def bound_ms(n_bytes: float, n_ops: float = 0.0) -> tuple[float, str]:
     """(least milliseconds the card could take, what bounds it)."""
     t_bytes, t_ops = n_bytes / HBM_BPS * 1e3, n_ops / INT_OPS * 1e3
@@ -201,6 +236,19 @@ def max_abs_err(a, b) -> int:
     return err
 
 
+def ptxas_report(log: str) -> dict:
+    """nvcc -Xptxas -v output -> {entry function: its stack, spill and
+    register lines}."""
+    out, name = {}, None
+    for line in log.splitlines():
+        for key in ("Compiling entry function '", "Function properties for "):
+            if key in line:
+                name = line.split(key, 1)[1].split("'")[0].strip()
+        if name and ("stack frame" in line or "registers" in line):
+            out.setdefault(name, []).append(line.split(":", 1)[-1].strip())
+    return out
+
+
 def phase_build(tag: str) -> None:
     from brotli_tpu_torch import build
 
@@ -208,7 +256,14 @@ def phase_build(tag: str) -> None:
     build.kernels_lib()
     dt = time.perf_counter() - t0
     print(f"[build] kernels built and loaded in {dt:.3f} s ({tag})")
-    for line in build.last_build_log.get("brotli_tpu_torch_kernels", "").splitlines():
+    log = build.last_build_log.get("brotli_tpu_torch_kernels", "")
+    for name, lines in sorted(ptxas_report(log).items()):
+        short = next((k for k in ("decode2_direct_kernel", "decode2_kernel",
+                                  "decode3_direct_kernel", "decode3_kernel")
+                      if k in name), None)
+        if short:
+            print(f"[build] {short}: {'; '.join(lines)}")
+    for line in log.splitlines():
         if "registers" in line or "spill" in line or "smem" in line:
             print(f"[build] {line.strip()}")
 
@@ -227,10 +282,13 @@ def phase_kernel_vs_plain() -> dict:
     tb = D.batch_to_torch(batch, "cuda")
     n0, r0 = D.KERNEL_LAUNCHES, R.KERNEL_LAUNCHES
     ker = D.entropy_decode(tb)
+    direct = D.entropy_decode_direct(tb)
     ref = D.entropy_decode_ref(tb)
     torch.cuda.synchronize()
     e_err = max_abs_err(ker, ref)
     check(e_err == 0, f"entropy kernel != plain version (max abs err {e_err})")
+    d_err = max_abs_err(direct, ref)
+    check(d_err == 0, f"direct entropy kernel != plain version ({d_err})")
     tok, count, phase, _ = ker
     check(bool((phase == D.DONE).all()), "entropy kernel left lanes not DONE")
     out_k, err_k = R.resolve_tokens(tok, count, tb.mlen, tb.max_mlen)
@@ -243,8 +301,9 @@ def phase_kernel_vs_plain() -> dict:
     outs, errs = R.unpack_resolved(out_k, err_k, batch.mlens)
     check(not errs.any(), "resolve flagged lanes of the 1 KB batch")
     check(b"".join(outs) == data, "1 KB batch bytes differ from the input")
-    print(f"[kernel==plain] 1024 lanes x 1 KB: entropy max_abs_err {e_err}, "
-          f"resolve max_abs_err {r_err} (exact equality required)")
+    print(f"[kernel==plain] 1024 lanes x 1 KB: entropy max_abs_err {e_err} "
+          f"(direct entropy kernel {d_err}), resolve max_abs_err {r_err} "
+          "(exact equality required)")
     return {"entropy": e_err, "resolve": r_err}
 
 
@@ -273,12 +332,15 @@ def phase_main_path(data: bytes, streams: list[bytes]) -> dict:
     fb0 = brotli_tpu_torch.fallback_stats()["lanes_fallback"]
     D.KERNEL_LAUNCHES = 0
     R.KERNEL_LAUNCHES = 0
+    D.DIRECT_LAUNCHES = 0
     t0 = time.perf_counter()
     got = brotli_tpu_torch.decode_batch_device_e2e(batch, device="cuda",
                                                    groups=GROUPS)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = {"entropy": D.KERNEL_LAUNCHES, "resolve": R.KERNEL_LAUNCHES}
+    check(D.DIRECT_LAUNCHES == 0, "the main path launched the direct "
+          "entropy kernel")
     fell = brotli_tpu_torch.fallback_stats()["lanes_fallback"] - fb0
     check(len(got) == len(batch), "wrong number of outputs")
     check(b"".join(got) == expect, "main-path output differs from the input")
@@ -336,16 +398,20 @@ def phase_times(streams: list[bytes], card_str: str) -> dict:
         tok, count, _, _ = state["e"]
         state["r"] = R.resolve_tokens(tok, count, tb.mlen, tb.max_mlen)
 
-    ent_ms = device_ms(ent)
+    ent_t = in_turns(ent, lambda: state.__setitem__(
+        "d", D.entropy_decode_direct(tb)))
+    ent_ms = ent_t["new"]
     res_ms = device_ms(res)
     # the wrappers zero their token and byte outputs; that fill is inside
     # the times above, so it is timed alone too
     ent_fill = device_ms(lambda: D._alloc_outputs(tb))
     res_fill = device_ms(lambda: R._alloc_outputs(state["e"][0], tb.max_mlen))
     mbps = total / ((ent_ms + res_ms) * 1e-3) / 1e6
-    print(f"[times] {card_str}: entropy kernel {ent_ms:.4f} ms, resolve kernel "
-          f"{res_ms:.4f} ms per {total} B batch (time_device_fn: CUDA events, "
-          f"best of 3 windows of 5; of which output allocation and zero-fill "
+    lanes = D.lanes_per_warp(tb.n_lanes, D.sm_count(tb.device))
+    print(f"[times] {card_str}: entropy kernel {turns_str(ent_t)}, "
+          f"{lanes} lanes a warp; resolve kernel {res_ms:.4f} ms; per "
+          f"{total} B batch (time_device_fn: CUDA events, best of 3 windows "
+          f"of 5 each; of which output allocation and zero-fill "
           f"{ent_fill:.4f} ms and {res_fill:.4f} ms)")
     print(f"[times] {card_str}: e2e device decode {mbps:.2f} MB/s "
           "(decoded bytes / both kernels' device time, batch staged)")
@@ -362,6 +428,9 @@ def phase_times(streams: list[bytes], card_str: str) -> dict:
             "resolve": max_abs_err(state["r"], state["pr"])}
     check(errs == {"entropy": 0, "resolve": 0},
           f"kernel != plain version on the main-path batch: {errs}")
+    d_err = max_abs_err(state["d"], state["pe"])
+    check(d_err == 0, f"direct entropy kernel != plain version on the "
+          f"main-path batch: {d_err}")
     print(f"[times] {card_str}: plain entropy {pe:.3f} ms, plain resolve "
           f"{pr:.3f} ms on the same batch (CUDA events, one run each)")
     # bounds: the words each lane consumed, the tables and per-lane scalars
@@ -378,6 +447,7 @@ def phase_times(streams: list[bytes], card_str: str) -> dict:
           f"({words} words consumed, {tokens} tokens; {ent_bound[1]}), "
           f"resolve {res_bound[0]:.6f} ms ({total} B out; {res_bound[1]})")
     return {"entropy_ms": ent_ms, "resolve_ms": res_ms,
+            "direct_entropy_ms": ent_t["old"],
             "plain_entropy_ms": pe, "plain_resolve_ms": pr,
             "entropy_bound": ent_bound, "resolve_bound": res_bound,
             "errs": errs}
@@ -744,9 +814,9 @@ def dictmix(n: int) -> bytes:
 
 def v3_kernel_vs_plain(tag: str, streams: list[bytes], expect: list,
                        flag: set = frozenset(), custom_dictionary=None) -> int:
-    """decode3 against decode3_ref on one staged batch, bit for bit over
-    the bytes and the 16 status rows; lanes in `flag` must flag and the
-    others decode to `expect`."""
+    """decode3 and decode3_direct against decode3_ref on one staged batch,
+    bit for bit over the bytes and the 16 status rows; lanes in `flag`
+    must flag and the others decode to `expect`."""
     from brotli_tpu_torch.ops import decode3 as D3
 
     batch = D3.preflight_v3(streams, max_groups=8)
@@ -754,11 +824,15 @@ def v3_kernel_vs_plain(tag: str, streams: list[bytes], expect: list,
     tb = D3.batch_to_torch_v3(batch, "cuda", custom_dictionary)
     n0 = D3.KERNEL_LAUNCHES
     ker = D3.decode3(tb)
+    direct = D3.decode3_direct(tb)
     ref = D3.decode3_ref(tb)
     torch.cuda.synchronize()
     check(D3.KERNEL_LAUNCHES == n0 + 1, "decode3 did not count its launch")
     err = max_abs_err(ker, ref)
     check(err == 0, f"{tag}: decode3 kernel != plain version ({err})")
+    d_err = max_abs_err(direct, ref)
+    check(d_err == 0, f"{tag}: direct decode3 kernel != plain version "
+          f"({d_err})")
     out = ker[0][:, tb.hrb:].cpu().numpy()
     status = ker[1].cpu().numpy()
     flagged = set()
@@ -775,12 +849,44 @@ def v3_kernel_vs_plain(tag: str, streams: list[bytes], expect: list,
           f"want {sorted(flag)}")
     print(f"[v3 kernel==plain] {tag}: {len(streams)} streams in "
           f"{batch.groups} groups, max_abs_err {err} over bytes and 16 status "
-          f"rows (exact equality required), flagged lanes {sorted(flagged)}")
-    return err
+          f"rows (direct kernel {d_err}; exact equality required), flagged "
+          f"lanes {sorted(flagged)}")
+    return max(err, d_err)
 
 
-def phase_v3_kernel_vs_plain() -> int:
+def v3_pair_times(tag: str, tb, card_str: str, use_dict: bool = True) -> dict:
+    """decode3 against decode3_direct on a staged batch: equal bit for bit
+    (the direct kernel is held to decode3_ref elsewhere), then both timed
+    in turns."""
+    from brotli_tpu_torch.ops import decode3 as D3
+
+    err = max_abs_err(D3.decode3(tb, use_dict), D3.decode3_direct(tb, use_dict))
+    check(err == 0, f"{tag}: decode3 kernel != direct kernel ({err})")
+    t = in_turns(lambda: D3.decode3(tb, use_dict),
+                 lambda: D3.decode3_direct(tb, use_dict))
+    total = int(tb.scal[1].to(torch.int64).sum().item())
+    print(f"[v3 times] {card_str}: {tag}: decode3 kernel {turns_str(t)} per "
+          f"{total} B ({total / (t['new'] * 1e-3) / 1e6:.2f} MB/s; "
+          f"time_device_fn, use_dict={use_dict}), launch_config (lanes a "
+          f"warp, window, table entries) {v3_config(tb)}; equal to the "
+          "direct kernel's output bit for bit")
+    return t
+
+
+def v3_config(tb) -> tuple:
+    """decode3's launch_config for a staged batch on this card."""
+    from brotli_tpu_torch.ops import decode3 as D3
+
+    props = torch.cuda.get_device_properties(tb.device)
+    return D3.launch_config(tb, props.multi_processor_count,
+                            props.shared_memory_per_multiprocessor)
+
+
+def phase_v3_kernel_vs_plain(card_str: str) -> int:
+    """The v3 batches against the plain version; then the host q9/q11
+    encodes, each 256 times, timed against the direct kernel."""
     import brotli_tpu_torch
+    from brotli_tpu_torch.ops import decode3 as D3
 
     enc, dec = brotli_tpu_torch.host_encode, brotli_tpu_torch.host_decode
     data = corpus(1024 * 1024)
@@ -796,6 +902,18 @@ def phase_v3_kernel_vs_plain() -> int:
             enc(texts[2], quality=9), enc(texts[3], quality=11)]
     worst = max(worst, v3_kernel_vs_plain(
         "host q9/q11 encodes (tree groups, block switching)", host, texts))
+    batch = D3.preflight_v3(host * 256, max_groups=8)
+    check(batch is not None, "preflight_v3 refused the host q9/q11 lanes")
+    tb = D3.batch_to_torch_v3(batch, "cuda")
+    out, status = D3.decode3(tb)
+    out = out.cpu().numpy()
+    check(not status[0].any().item(), "a host q9/q11 lane flagged")
+    for slot in range(tb.n_lanes):
+        i = int(batch.perm[slot])
+        if i >= 0:
+            check(out[slot, : batch.mlens[slot]].tobytes() == texts[i % 4],
+                  f"host q9/q11 lane {i} decodes wrong")
+    v3_pair_times("host q9/q11 encodes x 256 (1024 lanes)", tb, card_str)
     worst = max(worst, v3_kernel_vs_plain(
         "121 dictionary transforms x 1024", [DICT_121] * 1024,
         [dec(DICT_121)] * 1024))
@@ -865,6 +983,7 @@ def phase_v3_main(data: bytes, streams: list[bytes], card_str: str):
     D3.preflight_v3, D3.decode3 = timed_preflight, seen_decode3
     try:
         D3.KERNEL_LAUNCHES = 0
+        D3.DIRECT_LAUNCHES = 0
         t0 = time.perf_counter()
         got = brotli_tpu_torch.decode_batch_v3(streams, device="cuda",
                                                max_groups=V3_GROUPS,
@@ -878,6 +997,8 @@ def phase_v3_main(data: bytes, streams: list[bytes], card_str: str):
     check(b"".join(got) == data, "v3 main output differs from the input")
     check(fell == 0, f"{fell} v3 main lanes fell back to the host decoder")
     check(launches >= 1, "decode3 never launched on the v3 main path")
+    check(D3.DIRECT_LAUNCHES == 0, "the v3 main path launched the direct "
+          "kernel")
     check(seen["batch"].groups == V3_GROUPS, "v3 main batch is not 6 groups")
     check(len(seen["dicts"]) == launches
           and all(d is dict_dev for d in seen["dicts"]),
@@ -896,13 +1017,18 @@ def phase_v3_times(batch, card_str: str) -> dict:
     tb = D3.batch_to_torch_v3(batch, "cuda")
     total = int(batch.mlens.sum())
     state = {}
-    ms_nd = device_ms(lambda: state.__setitem__("nd", D3.decode3(tb, False)))
+    t = in_turns(lambda: state.__setitem__("nd", D3.decode3(tb, False)),
+                 lambda: state.__setitem__("o", D3.decode3_direct(tb, False)))
+    ms_nd = t["new"]
     ms_d = device_ms(lambda: state.__setitem__("d", D3.decode3(tb, True)))
     fill = device_ms(lambda: D3._alloc_outputs(tb))
     plain = plain_ms(lambda: state.__setitem__("p", D3.decode3_ref(tb, False)))
     err = max(max_abs_err(state["nd"], state["p"]),
               max_abs_err(state["d"], state["p"]))
     check(err == 0, f"decode3 != plain version on the v3 main batch: {err}")
+    d_err = max_abs_err(state["o"], state["p"])
+    check(d_err == 0, f"direct decode3 != plain version on the v3 main "
+          f"batch: {d_err}")
     # bound: the words each lane consumed, the tables and scalars in, the
     # decoded bytes and the 16 status rows out
     words = int(state["nd"][1][4].to(torch.int64).sum().item())
@@ -910,6 +1036,8 @@ def phase_v3_times(batch, card_str: str) -> dict:
                                      tb.dx, tb.consts, tb.lut, tb.tfm,
                                      tb.scal))
     bound = bound_ms(4 * (words + tables) + total + 4 * 16 * tb.n_lanes)
+    print(f"[v3 times] {card_str}: v3 cell: decode3 kernel {turns_str(t)} "
+          f"at use_dict=False, launch_config {v3_config(tb)}")
     print(f"[v3 times] {card_str}: decode3 kernel {ms_nd:.4f} ms at "
           f"use_dict=False, {ms_d:.4f} ms at use_dict=True, per {total} B "
           f"batch ({total / (ms_nd * 1e-3) / 1e6:.2f} MB/s at use_dict=False; "
@@ -918,8 +1046,8 @@ def phase_v3_times(batch, card_str: str) -> dict:
           f"{bound[0]:.6f} ms ({words} words consumed; {bound[1]})")
     print(f"[v3 times] {card_str}: plain decode3_ref {plain:.3f} ms on the "
           f"same batch (CUDA events, one run), max_abs_err {err}")
-    return {"ms": ms_nd, "ms_dict": ms_d, "plain_ms": plain, "err": err,
-            "bound": bound}
+    return {"ms": ms_nd, "ms_dict": ms_d, "direct_ms": t["old"],
+            "plain_ms": plain, "err": err, "bound": bound, "tb": tb}
 
 
 def phase_v3_full(card_str: str) -> int:
@@ -943,13 +1071,14 @@ def phase_v3_full(card_str: str) -> int:
     run = D3.run_batch_v3
 
     def counted(*a, **k):
-        rounds.append(1)
+        rounds.append(a[0])
         return run(*a, **k)
 
     fb0 = brotli_tpu_torch.fallback_stats()["lanes_fallback"]
     D3.run_batch_v3 = counted
     try:
         D3.KERNEL_LAUNCHES = 0
+        D3.DIRECT_LAUNCHES = 0
         t0 = time.perf_counter()
         got = brotli_tpu_torch.decode_batch_v3_full(lanes, device="cuda")
         torch.cuda.synchronize()
@@ -962,11 +1091,208 @@ def phase_v3_full(card_str: str) -> int:
     check(fell == 0, f"{fell} v3 full lanes fell back to the host decoder")
     check(launches == len(rounds) >= 2,
           f"{launches} decode3 launches for {len(rounds)} rounds")
+    check(D3.DIRECT_LAUNCHES == 0, "decode_batch_v3_full launched the "
+          "direct kernel")
     print(f"[v3 full] {card_str}: 1024 lanes x 64 KB (streaming 16 KB "
           f"metablocks, spliced 16 KB fragments, uncompressed) decoded bit-exact through "
           f"decode_batch_v3_full(device='cuda') in {dt:.3f} s (host clock), "
           f"0 fallback lanes, {len(rounds)} rounds, {launches} launches")
+    new = old = 0.0
+    for k, batch in enumerate(rounds):
+        tb = D3.batch_to_torch_v3(batch, "cuda")
+        t = v3_pair_times(f"v3 full round {k + 1} (history prefix {tb.hrb} "
+                          f"B)", tb, card_str)
+        new, old = new + t["new"], old + t["old"]
+    print(f"[v3 times] {card_str}: v3 full, {len(rounds)} rounds: decode3 "
+          f"kernel {new:.4f} ms, direct kernel {old:.4f} ms "
+          f"({old / new:.2f}x)")
     return launches
+
+
+CAP_SWEEP = (12, 16, 24, 32)
+
+
+def phase_caps(data: bytes, streams: list[bytes], v3_tb, v3_rows,
+               card_str: str) -> None:
+    """The group-cap sweep at CAP_SWEEP groups: v2, the main-path streams
+    G times through preflight_shared, both v2 kernels; v3, the staged
+    6-group cell tiled to G groups (lane l decodes the cell's lane l mod
+    6144), decode3.  Only the kernels are timed; the bytes on the card
+    must equal the input, with no flagged lane; peak device memory from
+    the staging on."""
+    import dataclasses
+
+    from brotli_tpu_torch.ops import decode2 as D
+    from brotli_tpu_torch.ops import decode3 as D3
+    from brotli_tpu_torch.ops import resolve as R
+
+    rows = torch.frombuffer(bytearray(data), dtype=torch.uint8).view(
+        -1, CHUNK).cuda()
+    for G in CAP_SWEEP:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        batch = D.preflight_shared(streams * G, groups=G, rate_sort=True)
+        check(batch is not None, f"preflight_shared refused {G} groups")
+        tb = D.batch_to_torch(batch, "cuda")
+        st = {}
+
+        def ent():
+            st["e"] = D.entropy_decode(tb)
+
+        def res():
+            tok, count, _, _ = st["e"]
+            st["r"] = R.resolve_tokens(tok, count, tb.mlen, tb.max_mlen)
+
+        e_ms, r_ms = device_ms(ent), device_ms(res)
+        _, _, phase, widx = st["e"]
+        resolved, err = st["r"]
+        want = rows[torch.from_numpy(batch.perm % len(streams)).cuda()]
+        over = D.lane_overran(batch, widx.cpu().numpy())
+        check(torch.equal(resolved, want), f"v2 at {G} groups: bytes differ")
+        check(bool((phase == D.DONE).all()) and not bool(err.any())
+              and not over.any(), f"v2 at {G} groups: flagged lanes")
+        peak2 = torch.cuda.max_memory_allocated() / 2**30
+        total = int(batch.mlens.sum())
+        mbps2 = total / ((e_ms + r_ms) * 1e-3) / 1e6
+        del tb, st, resolved, err, want, batch
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        n = G * 1024
+        lane = torch.arange(n, device="cuda") % v3_tb.n_lanes
+        grp = torch.arange(G) % v3_tb.groups
+        reps = -(-G // v3_tb.groups)
+        tbG = dataclasses.replace(
+            v3_tb, wt=v3_tb.wt[:, lane].contiguous(),
+            scal=v3_tb.scal[:, lane].contiguous(),
+            cfg=v3_tb.cfg[grp.cuda()].contiguous(),
+            cfg_host=v3_tb.cfg_host[grp.numpy()], groups=G,
+            # the per-group block-switch and distance tables by group count
+            # (the config rows keep pointing at the cell's own groups')
+            bsw=v3_tb.bsw.repeat(reps)[: G * D3.BSW_N].contiguous(),
+            dx=v3_tb.dx.repeat(reps)[: G * D3.DX_N].contiguous())
+        st = {}
+        d_ms = device_ms(lambda: st.__setitem__("o", D3.decode3(tbG, False)))
+        o, status = st["o"]
+        check(torch.equal(o[:, tbG.hrb: tbG.hrb + 4096], v3_rows[lane]),
+              f"v3 at {G} groups: bytes differ")
+        check(not bool(status[0].any()), f"v3 at {G} groups: flagged lanes")
+        peak3 = torch.cuda.max_memory_allocated() / 2**30
+        mbps3 = n * 4096 / (d_ms * 1e-3) / 1e6
+        print(f"[caps] {card_str}: {G} groups: v2 {total} B, entropy "
+              f"{e_ms:.4f} ms ({D.lanes_per_warp(n, D.sm_count(o.device))} "
+              f"lanes a warp) + resolve "
+              f"{r_ms:.4f} ms = {mbps2:.2f} MB/s, peak device memory "
+              f"{peak2:.3f} GiB; v3 {n * 4096} B, decode3 {d_ms:.4f} ms = "
+              f"{mbps3:.2f} MB/s (launch_config {v3_config(tbG)}), peak "
+              f"{peak3:.3f} GiB; bytes equal the input on the card, 0 "
+              "flagged lanes (time_device_fn, kernels only)")
+        del tbG, st, o, status
+
+
+SPARSE = 32   # streams of a sparse batch, each with tables of its own
+
+
+def sparse_run(name: str, streams: list[bytes], want: list[bytes], decode,
+               mod, runner: str, kernel_ms, card_str: str) -> None:
+    """One sparse batch: each of its streams a table group of its own, so
+    the staged batch is SPARSE groups of 1024 lanes with one live lane
+    each.  `decode` (a driver at the port's cap) on the card: the host
+    clock of the call, peak device memory, the rounds' groups, and the
+    kernels' time on each staged round (`kernel_ms`); against the host
+    decoder on the same streams, which is what the driver did at the
+    reference's cap.  Output equal to the input, no fallback lane."""
+    import brotli_tpu_torch
+
+    batches = []
+    run = getattr(mod, runner)
+
+    def seen(*a, **k):
+        batches.append(a[0])
+        return run(*a, **k)
+
+    t0 = time.perf_counter()
+    host = [brotli_tpu_torch.host_decode(x) for x in streams]
+    host_s = time.perf_counter() - t0
+    check(host == want, f"{name}: the host decoder differs from the input")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fb0 = brotli_tpu_torch.fallback_stats()["lanes_fallback"]
+    setattr(mod, runner, seen)
+    try:
+        t0 = time.perf_counter()
+        got = decode(streams)
+        torch.cuda.synchronize()
+        dev_s = time.perf_counter() - t0
+    finally:
+        setattr(mod, runner, run)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    fell = brotli_tpu_torch.fallback_stats()["lanes_fallback"] - fb0
+    check(got == want, f"{name}: output differs from the input")
+    check(fell == 0, f"{name}: {fell} lanes fell back to the host decoder")
+    check(all(b.groups == SPARSE for b in batches),
+          f"{name}: rounds of {[b.groups for b in batches]} groups, not "
+          f"{SPARSE}")
+    ms = [kernel_ms(b) for b in batches]
+    print(f"[caps sparse] {card_str}: {name}: {len(streams)} streams, "
+          f"{sum(map(len, want))} B, {len(batches)} round(s) of "
+          f"{SPARSE} groups x 1024 lanes, one live lane a group: "
+          f"{dev_s:.3f} s through the driver at the port's cap (host "
+          f"clock), kernels {sum(ms):.4f} ms ({', '.join(f'{m:.4f}' for m in ms)}; "
+          f"time_device_fn), peak device memory {peak:.3f} GiB, 0 fallback "
+          f"lanes; host decoder on the same streams {host_s:.3f} s")
+
+
+def phase_caps_sparse(data: bytes, card_str: str) -> None:
+    """Batches the caps let onto the card that the reference's caps sent
+    to the host: SPARSE streams whose tables all differ.  v2, one 8 KB
+    encode_sharded stream of its own text each (preflight_binned's bins);
+    v3, 32 KB streams encoded on the card with block switching (one
+    signature a stream); v3 full, 64 KB streams of four 16 KB metablocks
+    by a streaming host Encoder, one text each (one signature a stream in
+    every round, history prefixes up to 48 KB)."""
+    import brotli_tpu_torch
+    from brotli_tpu_torch.ops import decode2 as D
+    from brotli_tpu_torch.ops import decode3 as D3
+    from brotli_tpu_torch.ops import resolve as R
+
+    def v2_ms(batch):
+        tb = D.batch_to_torch(batch, "cuda")
+
+        def both():
+            tok, count, _, _ = D.entropy_decode(tb)
+            R.resolve_tokens(tok, count, tb.mlen, tb.max_mlen)
+        return device_ms(both)
+
+    def v3_ms(batch):
+        tb = D3.batch_to_torch_v3(batch, "cuda")
+        return device_ms(lambda: D3.decode3(tb))
+
+    want = [data[i * CHUNK: (i + 1) * CHUNK] for i in range(SPARSE)]
+    v2 = [brotli_tpu_torch.encode_sharded(w, chunk_size=CHUNK,
+                                          max_distance=MAX_DISTANCE)[0]
+          for w in want]
+    sparse_run("v2, 8 KB streams", v2, want,
+               lambda s: brotli_tpu_torch.decode_batch_device_e2e(
+                   s, device="cuda"), D, "run_batch_e2e", v2_ms, card_str)
+    text = corpus(SPARSE * ENC_CHUNK)
+    v3 = brotli_tpu_torch.encode_device_batch(
+        text, device="cuda", chunk_size=ENC_CHUNK, lit_ctx_trees=4,
+        block_types=3, block_seg=512)
+    want = [text[i: i + ENC_CHUNK] for i in range(0, len(text), ENC_CHUNK)]
+    sparse_run("v3, 32 KB streams", v3, want,
+               lambda s: brotli_tpu_torch.decode_batch_v3(s, device="cuda"),
+               D3, "run_batch_v3", v3_ms, card_str)
+    text = corpus(SPARSE * 65536 + 65536)[65536:]
+    want, full = [], []
+    for i in range(SPARSE):
+        want.append(text[i * 65536: (i + 1) * 65536])
+        enc = brotli_tpu_torch.Encoder(quality=5, lgwin=18)
+        enc.params.lgblock = 14   # 16 KB metablocks
+        full.append(enc.update(want[-1]) + enc.finish())
+    sparse_run("v3 full, 64 KB streams", full, want,
+               lambda s: brotli_tpu_torch.decode_batch_v3_full(
+                   s, device="cuda"), D3, "run_batch_v3", v3_ms, card_str)
 
 
 # integer operations of one row for one tile element, counted from the
@@ -1098,13 +1424,19 @@ def main() -> int:
     del enc_seen
     bench_err = phase_enc_bench(enc_data, card_str)
     del enc_data
-    v3_err = phase_v3_kernel_vs_plain()
+    v3_err = phase_v3_kernel_vs_plain(card_str)
     v3_data, v3_streams = v3_main_streams(card_str)
     v3_launches, v3_batch = phase_v3_main(v3_data, v3_streams, card_str)
+    # each lane's expected bytes, in the staged batch's lane order
+    v3_rows = torch.frombuffer(bytearray(v3_data), dtype=torch.uint8).view(
+        -1, V3_BENCH["chunk_size"])[torch.from_numpy(v3_batch.perm)].cuda()
     del v3_data, v3_streams
     v3_times = phase_v3_times(v3_batch, card_str)
     del v3_batch
     phase_v3_full(card_str)
+    phase_caps(data, streams, v3_times.pop("tb"), v3_rows, card_str)
+    del v3_rows
+    phase_caps_sparse(data, card_str)
     phase_entry()
     check_no_reference_imports()
 
@@ -1117,11 +1449,12 @@ def main() -> int:
 
     pv2, pv2b = probes["probe_v2"], probes["probe_v2b"]
     kernels = [
-        row("entropy_decode", "decode2.cu",
-            "brotli_tpu/ops/pallas_decode2.py:158", launches["entropy"],
-            max(errs["entropy"], times["errs"]["entropy"]),
-            times["entropy_ms"], times["plain_entropy_ms"],
-            times["entropy_bound"]),
+        {**row("entropy_decode", "decode2.cu",
+               "brotli_tpu/ops/pallas_decode2.py:158", launches["entropy"],
+               max(errs["entropy"], times["errs"]["entropy"]),
+               times["entropy_ms"], times["plain_entropy_ms"],
+               times["entropy_bound"]),
+         "direct_ms": times["direct_entropy_ms"]},
         row("resolve_tokens", "resolve.cu",
             "brotli_tpu/ops/pallas_resolve.py:127", launches["resolve"],
             max(errs["resolve"], times["errs"]["resolve"]),
@@ -1136,9 +1469,11 @@ def main() -> int:
                enc_times["pack_ms"], enc_times["plain_pack_ms"],
                enc_times["bound"]),
          "serial_ms": enc_times["serial_ms"]},
-        row("decode3", "decode3.cu", "brotli_tpu/ops/pallas_decode3.py:532",
-            v3_launches, max(v3_err, v3_times["err"]), v3_times["ms"],
-            v3_times["plain_ms"], v3_times["bound"]),
+        {**row("decode3", "decode3.cu",
+               "brotli_tpu/ops/pallas_decode3.py:532", v3_launches,
+               max(v3_err, v3_times["err"]), v3_times["ms"],
+               v3_times["plain_ms"], v3_times["bound"]),
+         "direct_ms": v3_times["direct_ms"]},
         row("probe_v2", "probe.cu", "tools/probe_v2.py:15",
             probes["launches"]["probe_v2"], pv2["err"], pv2["ms"],
             pv2["plain_ms"], pv2["bound"]),

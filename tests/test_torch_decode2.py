@@ -145,6 +145,74 @@ def test_host_shim_matches_plain(name):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("lanes", [1, 4, 32])
+@pytest.mark.parametrize("name", ["text_truncated", "zeros", "random",
+                                  "long_copy"])
+def test_queued_shim_matches_plain_and_jax(cases, name, lanes):
+    """The queued kernel's per-lane code (csrc/decode2.cuh Queued2 and the
+    look-ahead queue of csrc/queue.cuh) built by g++ == the plain version,
+    and its tokens, counts, phases and words == JAX's."""
+    if shutil.which("g++") is None:
+        pytest.skip("g++ not found: the host shim cannot be built")
+    batch, (jtok, jphase, jwidx) = cases[name]
+    tb = D.batch_to_torch(batch, "cpu")
+    got = D.entropy_decode_host(tb, lanes)
+    for a, b in zip(got, D.entropy_decode_ref(tb)):
+        assert torch.equal(a, b)
+    tok, count, phase, widx = got
+    jt, jc = D.tokens_from_jax(jtok, cap=tb.cap)
+    np.testing.assert_array_equal(count.numpy(), jc.numpy())
+    np.testing.assert_array_equal(tok.numpy(), jt.numpy())
+    np.testing.assert_array_equal(phase.numpy(), jphase.reshape(-1))
+    np.testing.assert_array_equal(widx.numpy(), jwidx.reshape(-1))
+
+
+@pytest.mark.parametrize("name", ["text_truncated", "zeros", "random",
+                                  "long_copy"])
+def test_direct_shim_matches_plain(name):
+    """The direct kernel's per-lane code built by g++ == the plain
+    version."""
+    if shutil.which("g++") is None:
+        pytest.skip("g++ not found: the host shim cannot be built")
+    tb = D.batch_to_torch(P2.preflight_shared(_batches()[name]), "cpu")
+    for a, b in zip(D.entropy_decode_host(tb, direct=True),
+                    D.entropy_decode_ref(tb)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("name", ["text_truncated", "random"])
+def test_words_ending_at_wpad(name):
+    """The word table cut to the most words any lane consumed, so the
+    longest lanes' look-ahead reaches Wpad and stops there (and lanes that
+    needed more run out): the queued shim == the plain version."""
+    import dataclasses
+
+    if shutil.which("g++") is None:
+        pytest.skip("g++ not found: the host shim cannot be built")
+    tb = D.batch_to_torch(P2.preflight_shared(_batches()[name]), "cpu")
+    last = int(D.entropy_decode_ref(tb)[3].max())
+    for k in (last, last - 3):
+        cut = dataclasses.replace(tb, wt=tb.wt[:k].contiguous())
+        ref = D.entropy_decode_ref(cut)
+        assert int(ref[3].max()) == k
+        for a, b in zip(D.entropy_decode_host(cut), ref):
+            assert torch.equal(a, b)
+
+
+def test_lanes_per_warp():
+    """The lane map: about WARPS_PER_SM warps of lanes on each SM, a power
+    of two from 1 to 32."""
+    assert D.lanes_per_warp(4096, 132) == 4      # the v2 cell on an H100
+    assert D.lanes_per_warp(6144, 132) == 4      # the v3 cell
+    assert D.lanes_per_warp(1024, 132) == 1
+    assert D.lanes_per_warp(32 * 1024, 132) == 32
+    assert D.lanes_per_warp(1 << 20, 132) == 32
+    for n in (1024, 3072, 12288, 20480):
+        lpw = D.lanes_per_warp(n, 132)
+        assert lpw & (lpw - 1) == 0
+        assert n / (lpw * 132) <= D.WARPS_PER_SM
+
+
 def test_batch_to_torch_layout():
     streams = encode_sharded(_source_text(1024), chunk_size=256)
     batch = P2.preflight_shared(streams, groups=2)
@@ -220,8 +288,9 @@ def test_entropy_decode_rejects_bad_tensors():
 
 
 @pytest.mark.cuda
-def test_entropy_kernel_matches_plain_on_card():
-    """The CUDA kernel == the plain version on CUDA tensors (needs a card)."""
+def test_entropy_kernel_matches_plain_on_card(monkeypatch):
+    """The CUDA kernel == the plain version on CUDA tensors (needs a card),
+    at its own lane map and at others."""
     if not torch.cuda.is_available():
         pytest.skip("no CUDA card: the kernel runs only on the GPU")
     streams = encode_sharded(_source_text(16384), chunk_size=512,
@@ -233,3 +302,14 @@ def test_entropy_kernel_matches_plain_on_card():
     assert D.KERNEL_LAUNCHES == before + 1
     for a, b in zip(ker, ref):
         assert torch.equal(a.cpu(), b.cpu())
+    direct = D.DIRECT_LAUNCHES
+    others = []
+    for lanes in (1, 2, 8, 16, 32):
+        with monkeypatch.context() as m:
+            m.setattr(D, "lanes_per_warp", lambda n, sms, lanes=lanes: lanes)
+            others.append(D.entropy_decode(tb))
+    others.append(D.entropy_decode_direct(tb))
+    assert D.DIRECT_LAUNCHES == direct + 1
+    for out in others:
+        for a, b in zip(out, ref):
+            assert torch.equal(a.cpu(), b.cpu())

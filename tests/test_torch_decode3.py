@@ -26,6 +26,7 @@ import brotli_tpu_torch
 from brotli_tpu.encode import encode
 from brotli_tpu.encode import metablock_full as MF
 from brotli_tpu.ops import pallas_decode3 as P3
+from brotli_tpu_torch.ops import decode2 as D2
 from brotli_tpu_torch.ops import decode3 as D3
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -311,6 +312,137 @@ def test_host_shim_matches_plain(name):
     np.testing.assert_array_equal(out, ref_out)
 
 
+WINDOWS = [64, 2048]  # the smallest window (every copy of more than 48
+                     # bytes back reads the slot) and the v3 cell's kind
+
+
+def needs_gxx():
+    if shutil.which("g++") is None:
+        pytest.skip("g++ not found: the host shim cannot be built")
+
+
+@pytest.mark.parametrize("window", WINDOWS)
+@pytest.mark.parametrize("name", CASES)
+def test_windowed_shim_matches_plain_and_jax(name, window):
+    """The windowed kernel's per-lane code (csrc/decode3.cuh Ring3: the
+    window, its 16-byte flushes, the 8-byte and repeating copies, the far
+    path to the slot, the look-ahead queue) built by g++ == the plain
+    version bit for bit, and == JAX on every lane JAX does not flag."""
+    needs_gxx()
+    ref_out, ref_status = plain_run(name)
+    _, _, kw = case(name)
+    tb = D3.batch_to_torch_v3(staged(name), "cpu", kw.get("custom_dictionary"))
+    out, status = D3.decode3_host(tb, kw.get("use_dict", True), window=window)
+    out, status = out[:, tb.hrb:].numpy(), status.numpy().astype(np.int64)
+    np.testing.assert_array_equal(status, ref_status)
+    np.testing.assert_array_equal(out, ref_out)
+    jstatus, jraw = jax_run(name)
+    clean = ~flagged(staged(name), jstatus)
+    np.testing.assert_array_equal(status[:10, clean], jstatus[:10, clean])
+    mlens = staged(name).mlens
+    for slot in np.flatnonzero(clean & (mlens > 0)):
+        assert (out[slot, : mlens[slot]].tobytes()
+                == jraw[slot, : mlens[slot]].tobytes())
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_direct_shim_matches_plain(name):
+    """The direct kernel's per-lane code (csrc/decode3.cuh Direct3) built
+    by g++ == the plain version."""
+    needs_gxx()
+    ref_out, ref_status = plain_run(name)
+    _, _, kw = case(name)
+    tb = D3.batch_to_torch_v3(staged(name), "cpu", kw.get("custom_dictionary"))
+    out, status = D3.decode3_host(tb, kw.get("use_dict", True), direct=True)
+    np.testing.assert_array_equal(status.numpy(), ref_status)
+    np.testing.assert_array_equal(out[:, tb.hrb:].numpy(), ref_out)
+
+
+def overlap_stream() -> tuple[bytes, bytes]:
+    """Copies of every kind the window backend tells apart: distances 1-7
+    that repeat a pattern (distance < length), 8 and 9 (8 bytes a step
+    over their own output), a copy no longer than its distance, and
+    distances around a 64-byte window's reach (48): 47, 48, 49 and 150,
+    whose source is in flushed output."""
+    from brotli_tpu.encode.command import make_command
+
+    plan = [(b"abcde", 40, 1), (b"xyz", 37, 3), (b"Qr", 50, 7),
+            (b"!", 64, 8), (b"0123", 30, 9), (b"uvw", 100, 100),
+            (b"ij", 20, 150), (b"k", 33, 47), (b"l", 33, 48), (b"m", 33, 49),
+            (b"no", 17, 5)]
+    data, commands = bytearray(), []
+    for lits, n, d in plan:
+        data += lits
+        for _ in range(n):
+            data.append(data[-d])
+        commands.append(make_command(len(lits), n, 0, d + 15, 0, 0))
+    return _trivial_stream(bytes(data), commands), bytes(data)
+
+
+@pytest.mark.parametrize("window", [64, 128, 2048])
+def test_windowed_copies_match_plain(window):
+    """overlap_stream through the windowed shim and the plain version: the
+    same bytes and status, and the stream's bytes."""
+    needs_gxx()
+    stream, expected = overlap_stream()
+    assert brotli_tpu.decode(stream) == expected
+    tb = D3.batch_to_torch_v3(P3.preflight_v3([stream]), "cpu")
+    ref = D3.decode3_ref(tb)
+    got = D3.decode3_host(tb, window=window)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    assert ref[1][0, 0] == 0
+    assert got[0][0, : len(expected)].numpy().tobytes() == expected
+
+
+def test_words_ending_at_wpad():
+    """The word table cut to the most words any lane of port_ctx_2groups
+    consumed, so the longest lanes' look-ahead reaches Wpad and stops
+    there: the windowed shim == the plain version on the cut table too."""
+    import dataclasses
+
+    needs_gxx()
+    tb = D3.batch_to_torch_v3(staged("port_ctx_2groups"), "cpu")
+    last = int(plain_run("port_ctx_2groups")[1][4].max())
+    assert last < tb.wpad
+    cut = dataclasses.replace(tb, wt=tb.wt[:last].contiguous())
+    ref = D3.decode3_ref(cut)
+    assert int(ref[1][4].max()) == last
+    got = D3.decode3_host(cut, window=64)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+def test_launch_config_fits_the_card():
+    """launch_config on an H100's figures (132 SMs, 228 KB of shared
+    memory each): the lane map, a power-of-two window the slot needs no
+    more of, the tables within their budget, and one wave's blocks within
+    each SM's shared memory."""
+    tb = D3.batch_to_torch_v3(staged("port_ctx_2groups"), "cpu")
+    smem = 228 * 1024
+    for sms in (132, 16):
+        lpw, win, tab = D3.launch_config(tb, sms, smem)
+        lpb = 4 * lpw
+        blocks_per_sm = -(-(tb.n_lanes // lpb) // sms)
+        per_block = lpb * win + 4 * D3.QUEUE_R * lpb + 4 * tab
+        assert lpw == D2.lanes_per_warp(tb.n_lanes, sms)
+        assert win & (win - 1) == 0 and D3.WINDOW_MIN <= win
+        assert win <= max(D3.WINDOW_MIN, tb.hrb + tb.out_cap) * 2
+        assert tab <= min(D3.table_ints(tb.cfg_host), D3.TABLE_BUDGET)
+        room = (smem // blocks_per_sm - 1024 - 4 * D3.QUEUE_R * lpb)
+        if room >= min(D3.WINDOW_PREF, tb.hrb + tb.out_cap) * lpb:
+            assert win >= min(D3.WINDOW_PREF, tb.hrb + tb.out_cap)
+        assert blocks_per_sm * (per_block + 1024) <= smem
+    assert D3.launch_config(tb, 132, smem)[2] == D3.table_ints(tb.cfg_host)
+    assert D3._fit(tb, 8, 132, smem, 256)[:2] == (8, 256)
+    # a table that does not fit is left in global memory whole, and the
+    # ones after it are staged where they fit
+    sizes = D3._table_sizes(tb.cfg_host)
+    cap = int(sizes[:, :3].sum(axis=1).max()) + 1
+    assert D3.table_ints(tb.cfg_host, cap) <= cap
+    # a batch too large for a WINDOW_PREF window keeps its tables
+    big = D3._fit(tb, 32, 1, smem)
+    assert big[2] == min(D3.table_ints(tb.cfg_host), D3.TABLE_BUDGET)
+
+
 def test_all_transforms_match_host():
     """Every one of the 121 transforms, each on a dictionary word: plain
     version and host shim equal the host decoder.  (The JAX kernel gathers
@@ -478,17 +610,32 @@ def test_cuda_device_raises_without_card():
 
 
 @pytest.mark.cuda
-def test_kernel_matches_plain_on_card():
-    """The CUDA kernel == the plain version on CUDA tensors (needs a card)."""
+def test_kernel_matches_plain_on_card(monkeypatch):
+    """The CUDA kernel == the plain version on CUDA tensors (needs a card),
+    at its own launch config and at other lane maps and windows."""
     if not torch.cuda.is_available():
         pytest.skip("no CUDA card: the kernel runs only on the GPU")
     for name in CASES:
         _, _, kw = case(name)
         tb = D3.batch_to_torch_v3(staged(name), "cuda",
                                   kw.get("custom_dictionary"))
+        ud = kw.get("use_dict", True)
         before = D3.KERNEL_LAUNCHES
-        ker = D3.decode3(tb, kw.get("use_dict", True))
-        ref = D3.decode3_ref(tb, kw.get("use_dict", True))
+        ker = D3.decode3(tb, ud)
+        ref = D3.decode3_ref(tb, ud)
         assert D3.KERNEL_LAUNCHES == before + 1
         for a, b in zip(ker, ref):
             assert torch.equal(a.cpu(), b.cpu()), name
+        direct = D3.DIRECT_LAUNCHES
+        others = []
+        for lanes, window in ((1, 64), (4, 128), (32, 64)):
+            with monkeypatch.context() as m:
+                m.setattr(D3, "launch_config",
+                          lambda tb, sms, smem, lanes=lanes, window=window:
+                          D3._fit(tb, lanes, sms, smem, window))
+                others.append(D3.decode3(tb, ud))
+        others.append(D3.decode3_direct(tb, ud))
+        assert D3.DIRECT_LAUNCHES == direct + 1
+        for out in others:
+            for a, b in zip(out, ref):
+                assert torch.equal(a.cpu(), b.cpu()), name

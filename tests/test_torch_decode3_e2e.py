@@ -7,6 +7,7 @@ Tolerance: exact equality of the decoded bytes, with no host fallback on
 either side.  The corpus is built here from in-repo files.
 """
 
+from functools import lru_cache
 from pathlib import Path
 import os
 import subprocess
@@ -14,6 +15,7 @@ import sys
 import textwrap
 
 import pytest
+import torch
 
 import brotli_tpu
 import brotli_tpu_torch
@@ -59,20 +61,38 @@ def _fallbacks() -> tuple[int, int]:
             P2.fallback_stats()["lanes_fallback"])
 
 
-def test_slice_matches_jax_and_data():
-    """Port encode (bench setting, 8 context-mapped literal trees) -> port
-    decode_batch_v3 == JAX decode_batch_v3 == the data."""
+@lru_cache(maxsize=None)
+def _slice():
+    """(data, port-encoded streams at the bench setting, JAX
+    decode_batch_v3 of them at the reference's max_groups=4)."""
     data = _source_text(8 * CHUNK, skip=100000)
     streams = brotli_tpu_torch.encode_device_batch(
         data, device="cpu", chunk_size=CHUNK, **SLICE_KW)
+    return data, streams, P3.decode_batch_v3(streams, H=512, interpret=True,
+                                             max_groups=4)
+
+
+def test_slice_matches_jax_and_data():
+    """Port encode (bench setting, 8 context-mapped literal trees) -> port
+    decode_batch_v3 == JAX decode_batch_v3 == the data."""
+    before = _fallbacks()
+    data, streams, jax = _slice()
     batch = P3.preflight_v3(streams)
     assert batch.groups == 1 and batch.configs[0].NL == 8
-    before = _fallbacks()
     port = brotli_tpu_torch.decode_batch_v3(streams, device="cpu")
-    jax = P3.decode_batch_v3(streams, H=512, interpret=True)
     assert _fallbacks() == before
     chunks = [data[i: i + CHUNK] for i in range(0, len(data), CHUNK)]
     assert port == jax == chunks
+
+
+def test_reference_cap_matches_jax():
+    """The port's decode_batch_v3 given the reference's max_groups=4
+    explicitly == JAX's at the same cap."""
+    before = _fallbacks()
+    _, streams, jax = _slice()
+    assert brotli_tpu_torch.decode_batch_v3(streams, device="cpu",
+                                            max_groups=4) == jax
+    assert _fallbacks() == before
 
 
 @pytest.mark.parametrize("name", list(FULL))
@@ -106,6 +126,38 @@ def test_full_path_1k_metablocks():
     assert brotli_tpu_torch.decode_batch_v3_full([stream], device="cpu") == [
         data]
     assert _fallbacks() == before
+
+
+def test_windowed_shim_in_full_path(monkeypatch):
+    """decode_batch_v3_full on the stream of 1 KB metablocks with every
+    round's batch also run through the windowed kernel's per-lane code
+    (g++) at a 64-byte window: equal to the plain version bit for bit in
+    every round, where lanes carry a history prefix and copies reach past
+    the window into it and into flushed output; the bytes equal the data,
+    with no fallback."""
+    import shutil
+
+    if shutil.which("g++") is None:
+        pytest.skip("g++ not found: the host shim cannot be built")
+    window = 64
+    data = _source_text(3 * CHUNK, skip=110000)
+    stream = streaming_stream(data, block_bits=10)
+    rounds = []
+    plain = D3.decode3
+
+    def both(tb, use_dict=True):
+        ref = plain(tb, use_dict)
+        got = D3.decode3_host(tb, use_dict, window=window)
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+        rounds.append(tb.hrb)
+        return ref
+
+    monkeypatch.setattr(D3, "decode3", both)
+    before = _fallbacks()
+    assert brotli_tpu_torch.decode_batch_v3_full([stream], device="cpu") == [
+        data]
+    assert _fallbacks() == before
+    assert len(rounds) >= 2 and max(rounds) > window
 
 
 @pytest.mark.parametrize("k", [12, 16])

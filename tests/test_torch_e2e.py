@@ -7,6 +7,7 @@ fallback would hide a device fault).  The corpus is built here from in-repo
 files and numpy-seeded bytes.
 """
 
+from functools import lru_cache
 from pathlib import Path
 import os
 import subprocess
@@ -40,18 +41,34 @@ def _port_decode(streams, **kw):
     return got, brotli_tpu_torch.fallback_stats()["lanes_fallback"] - before
 
 
-def test_slice_matches_jax():
-    """encode_sharded -> both decode round trips: same bytes, no fallback."""
+@lru_cache(maxsize=None)
+def _slice():
+    """(data, streams, JAX decode_batch_device_e2e output, JAX fallback
+    lanes): the reference's groups, min(MAX_GROUPS = 12, batch groups)."""
     data = _source_text(2048, skip=30000)
     streams = encode_sharded(data, chunk_size=256, max_distance=512 - 16)
     before = P2.fallback_stats()["lanes_fallback"]
     jax_out = P2.decode_batch_device_e2e(streams, H=512, interpret=True,
                                          token_row_cap=512)
-    jax_fell = P2.fallback_stats()["lanes_fallback"] - before
+    return data, streams, jax_out, P2.fallback_stats()["lanes_fallback"] - before
+
+
+def test_slice_matches_jax():
+    """encode_sharded -> both decode round trips: same bytes, no fallback."""
+    data, streams, jax_out, jax_fell = _slice()
     port_out, port_fell = _port_decode(streams)
     assert jax_out == port_out
     assert b"".join(port_out) == data
     assert jax_fell == 0 and port_fell == 0
+
+
+def test_reference_cap_matches_jax():
+    """The port given the groups the reference's cap picks for the batch
+    (min(MAX_GROUPS = 12, its groups)) explicitly == JAX."""
+    _, streams, jax_out, _ = _slice()
+    groups = min(P2.MAX_GROUPS, -(-len(streams) // P2.NSTREAM))
+    port_out, port_fell = _port_decode(streams, groups=groups)
+    assert port_out == jax_out and port_fell == 0
 
 
 def test_far_distances_decode_without_fallback():
