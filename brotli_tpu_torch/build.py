@@ -57,7 +57,8 @@ _DECODE2_ARGS = _DECODE2_DIRECT_ARGS + [_I]           # + lanes a warp
 _DECODE3_DIRECT_ARGS = [_P] * 17 + [_I] * 9
 _DECODE3_ARGS = _DECODE3_DIRECT_ARGS + [_I] * 3       # + lanes a warp,
                                                       # window, table budget
-_RESOLVE_ARGS = [_P] * 5 + [_I, _I, ctypes.c_longlong]
+_RESOLVE_DIRECT_ARGS = [_P] * 5 + [_I, _I, ctypes.c_longlong]
+_RESOLVE_ARGS = _RESOLVE_DIRECT_ARGS + [_I]           # + window bytes
 _PACK_ARGS = [_P] * 13 + [_I] * 9
 _PACK_SERIAL_ARGS = [_P] * 12 + [_I] * 9
 _PARSE_ARGS = [_P] * 6 + [_I] * 6
@@ -151,6 +152,7 @@ def kernels_lib() -> ctypes.CDLL:
             "brotli_torch_decode3": _DECODE3_ARGS + [_P],
             "brotli_torch_decode3_direct": _DECODE3_DIRECT_ARGS + [_P],
             "brotli_torch_resolve": _RESOLVE_ARGS + [_P],
+            "brotli_torch_resolve_direct": _RESOLVE_DIRECT_ARGS + [_P],
             "brotli_torch_pack": _PACK_ARGS + [_P],
             "brotli_torch_pack_serial": _PACK_SERIAL_ARGS + [_P],
             "brotli_torch_parse": _PARSE_ARGS + [_P],
@@ -175,6 +177,7 @@ def host_lib() -> ctypes.CDLL:
             "brotli_torch_decode3_host": _DECODE3_ARGS,
             "brotli_torch_decode3_direct_host": _DECODE3_DIRECT_ARGS,
             "brotli_torch_resolve_host": _RESOLVE_ARGS,
+            "brotli_torch_resolve_direct_host": _RESOLVE_DIRECT_ARGS,
             "brotli_torch_pack_host": _PACK_ARGS,
             "brotli_torch_pack_serial_host": _PACK_SERIAL_ARGS,
             "brotli_torch_parse_host": _PARSE_ARGS,

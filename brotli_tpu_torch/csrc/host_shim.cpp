@@ -180,16 +180,46 @@ extern "C" int brotli_torch_decode3_host(
   return 0;
 }
 
-extern "C" int brotli_torch_resolve_host(const void* tok, const void* count,
-                                         const void* mlen, void* out,
-                                         void* err, int n_lanes, int cap,
-                                         long long out_stride) {
+// The direct kernel of resolve.cu, lane by lane.
+extern "C" int brotli_torch_resolve_direct_host(const void* tok,
+                                                const void* count,
+                                                const void* mlen, void* out,
+                                                void* err, int n_lanes,
+                                                int cap, long long out_stride) {
   if (n_lanes <= 0 || cap < 0 || out_stride < 0) return 1;
   for (int lane = 0; lane < n_lanes; ++lane) {
     ((i32*)err)[lane] = resolve_lane(
         (const u32*)tok + lane, n_lanes, ((const i32*)count)[lane], cap,
         ((const i32*)mlen)[lane], (u8*)out + (i64)lane * out_stride,
         out_stride);
+  }
+  return 0;
+}
+
+// The warp kernel of resolve.cu, lane by lane, the 32 threads of each step
+// as loops: each lane's window of `win` bytes and its token ring in host
+// arrays.  `win` and the alignment of `out` are checked as the launch
+// checks them.
+extern "C" int brotli_torch_resolve_host(const void* tok, const void* count,
+                                         const void* mlen, void* out,
+                                         void* err, int n_lanes, int cap,
+                                         long long out_stride, int win) {
+  if (n_lanes <= 0 || cap < 0 || out_stride < 0 || win < RESOLVE_WIN_MIN ||
+      (win & (win - 1)) != 0 || ((uintptr_t)out & 15) != 0)
+    return 1;
+  std::vector<u8> window((std::size_t)win + 16);
+  u8* w = window.data() + ((16 - ((uintptr_t)window.data() & 15)) & 15);
+  u32 tq[TOKQ];
+  for (int lane = 0; lane < n_lanes; ++lane) {
+    // a window byte read before the lane wrote it would show as 0xA5 in
+    // the lane's bytes, which the tests hold against the plain version
+    std::fill(w, w + win, (u8)0xA5);
+    const i32 cnt = ((const i32*)count)[lane];
+    const ResolveWarpLane L{(const u32*)tok + lane, n_lanes,
+                            cnt < cap ? cnt : cap, ((const i32*)mlen)[lane],
+                            (u8*)out + (i64)lane * out_stride, out_stride,
+                            w, win - 1, tq};
+    ((i32*)err)[lane] = resolve_lane_warp(L);
   }
   return 0;
 }

@@ -5,8 +5,14 @@ The reference kernel keeps every lane's history in a shared VMEM ring of H
 bytes, so it must flag copies further back than H-16 (ERR_FAR_DIST), and it
 pulls tokens through a lockstep row cursor.  Here each lane resolves into
 its own slot of a slot-major (n_lanes, max_mlen) u8 output in device memory
-(csrc/resolve.cu): there is no ring, no far flag, and a lane the reference
-flags far decodes, with the host decoder's bytes.
+(csrc/resolve.cu): there is no distance cap, no far flag, and a lane the
+reference flags far decodes, with the host decoder's bytes.
+
+`resolve_tokens` launches `resolve_kernel`: one warp a lane, 32 tokens a
+step, the lane's bytes in a window in shared memory that `launch_config`
+sizes for the card (csrc/resolve.cuh resolve_lane_warp).
+`resolve_tokens_direct` launches the first form, one thread a lane, kept
+beside it for comparison.
 
 Tokens come in the port's compact form: tok (cap, n_lanes) int32 holding
 the u32 token bits, token-major, with count[lane] valid tokens per lane
@@ -25,8 +31,19 @@ ERR_STARVED = 2    # tokens ended before mlen bytes
 ERR_MALFORMED = 4  # tag-2 without a pending tag-1, distance outside [1, pos],
                    # or mlen beyond the output slot
 
-# Launches of the CUDA kernel, counted by the wrapper where it launches.
+# Launches of the CUDA kernels, counted by the wrappers where they launch:
+# resolve_kernel (the main path's) and resolve_direct_kernel.
 KERNEL_LAUNCHES = 0
+DIRECT_LAUNCHES = 0
+
+# resolve_kernel's shape, as csrc/resolve.cu and resolve.cuh define it
+# (RESOLVE_WARPS, 4 * TOKQ, RESOLVE_WIN_MIN; tests/test_torch_resolve.py
+# holds them equal): lanes a block, token-ring bytes a lane, the window's
+# bounds (powers of two)
+LANES_A_BLOCK = 8
+TOKQ_BYTES = 4 * 128
+WINDOW_MIN = 64
+WINDOW_MAX = 16384
 
 _M32 = 0xFFFFFFFF
 
@@ -54,25 +71,80 @@ def resolve_tokens(tok: torch.Tensor, count: torch.Tensor, mlen: torch.Tensor,
     the largest mlen from the host batch, so no device read is needed); a
     lane whose mlen exceeds it is flagged, and a count above the token
     slots is cut to them.  CPU tensors take resolve_tokens_ref; CUDA tensors
-    launch csrc/resolve.cu.
+    launch csrc/resolve.cu `resolve_kernel` with the window launch_config
+    sizes for the batch and the card.
     """
     global KERNEL_LAUNCHES
+    if not _on_card(tok, count, mlen, max_mlen):
+        return resolve_tokens_ref(tok, count, mlen, max_mlen)
+    props = torch.cuda.get_device_properties(tok.device)
+    window = launch_config(tok.shape[1], max_mlen, props.multi_processor_count,
+                           props.shared_memory_per_multiprocessor,
+                           props.max_threads_per_multi_processor)
+    outs = _launch(tok, count, mlen, max_mlen, "brotli_torch_resolve",
+                   [window], "resolve kernel")
+    KERNEL_LAUNCHES += 1
+    return outs
+
+
+def launch_config(n_lanes: int, max_mlen: int, sms: int, smem_sm: int,
+                  threads_sm: int) -> int:
+    """Window bytes a lane of resolve_kernel on a card of `sms` SMs with
+    `smem_sm` bytes of shared memory and `threads_sm` threads each.  The
+    blocks an SM holds at once (those of one wave, at most what its threads
+    allow) share its shared memory, less the 1 KB each block's runtime
+    reserve takes and the token rings; the window is the largest power of
+    two in [WINDOW_MIN, WINDOW_MAX] that fits, and no larger than a slot
+    at any 16-byte phase needs (then a lane never reads its slot back)."""
+    blocks = -(-n_lanes // LANES_A_BLOCK)
+    per_sm = max(1, min(-(-blocks // sms), threads_sm // (32 * LANES_A_BLOCK)))
+    room = (smem_sm // per_sm - 1024
+            - LANES_A_BLOCK * TOKQ_BYTES) // LANES_A_BLOCK
+    need = max_mlen + (15 if max_mlen % 16 else 0)
+    window = min(WINDOW_MAX, 1 << max(0, (need - 1).bit_length()),
+                 1 << max(0, room.bit_length() - 1))
+    return max(WINDOW_MIN, window)
+
+
+def resolve_tokens_direct(tok: torch.Tensor, count: torch.Tensor,
+                          mlen: torch.Tensor,
+                          max_mlen: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """resolve_tokens through resolve_direct_kernel (one lane a thread,
+    blocks of 128, each token and byte in device memory); CPU tensors take
+    resolve_tokens_ref."""
+    global DIRECT_LAUNCHES
+    if not _on_card(tok, count, mlen, max_mlen):
+        return resolve_tokens_ref(tok, count, mlen, max_mlen)
+    outs = _launch(tok, count, mlen, max_mlen, "brotli_torch_resolve_direct",
+                   [], "direct resolve kernel")
+    DIRECT_LAUNCHES += 1
+    return outs
+
+
+def _on_card(tok, count, mlen, max_mlen: int) -> bool:
+    """False for CPU tensors (which take the plain version); raises on a
+    device that is neither."""
     _check(tok, count, mlen, max_mlen)
     if tok.device.type == "cpu":
-        return resolve_tokens_ref(tok, count, mlen, max_mlen)
+        return False
     if tok.device.type != "cuda":
         raise ValueError(f"unsupported device {tok.device}")
+    return True
+
+
+def _launch(tok, count, mlen, max_mlen: int, entry: str, extra: list,
+            what: str):
+    """Launch `entry` of the CUDA library; the outputs."""
     from ..build import kernels_lib
 
     out, err = _alloc_outputs(tok, max_mlen)
     with torch.cuda.device(tok.device):
-        rc = kernels_lib().brotli_torch_resolve(
-            *_c_args(tok, count, mlen, out, err, max_mlen),
+        rc = getattr(kernels_lib(), entry)(
+            *_c_args(tok, count, mlen, out, err, max_mlen), *extra,
             torch.cuda.current_stream(tok.device).cuda_stream,
         )
     if rc != 0:
-        raise RuntimeError(f"resolve kernel launch failed: cudaError {rc}")
-    KERNEL_LAUNCHES += 1
+        raise RuntimeError(f"{what} launch failed: cudaError {rc}")
     return out, err
 
 
@@ -90,18 +162,24 @@ def _c_args(tok, count, mlen, out, err, max_mlen: int) -> list:
 
 
 def resolve_tokens_host(tok: torch.Tensor, count: torch.Tensor,
-                        mlen: torch.Tensor,
-                        max_mlen: int) -> tuple[torch.Tensor, torch.Tensor]:
+                        mlen: torch.Tensor, max_mlen: int,
+                        window: int = 2048,
+                        direct: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """csrc/resolve.cuh's per-lane code built for the CPU (build.host_lib):
-    for the tests, which hold it against resolve_tokens_ref."""
+    resolve_kernel's warp form with a `window`-byte window (each step's 32
+    threads as loops), or with `direct` the direct kernel's.  For the tests,
+    which hold it against resolve_tokens_ref."""
     from ..build import host_lib
 
     _check(tok, count, mlen, max_mlen)
     if tok.device.type != "cpu":
         raise ValueError("the host shim takes CPU tensors")
     out, err = _alloc_outputs(tok, max_mlen)
-    if host_lib().brotli_torch_resolve_host(
-            *_c_args(tok, count, mlen, out, err, max_mlen)) != 0:
+    args = _c_args(tok, count, mlen, out, err, max_mlen)
+    lib = host_lib()
+    rc = (lib.brotli_torch_resolve_direct_host(*args) if direct
+          else lib.brotli_torch_resolve_host(*args, window))
+    if rc != 0:
         raise ValueError("host shim refused the tokens")
     return out, err
 

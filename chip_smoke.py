@@ -7,20 +7,28 @@ Phases, in order; any failure raises and the exit code is non-zero:
 
 1. build  -- nvcc compiles brotli_tpu_torch/csrc/*.cu (sm_90a) at first use,
    and prints nvcc's registers, stack and spills of the queued and direct
-   entropy kernels and of the windowed and direct v3 kernels;
+   entropy kernels, the windowed and direct v3 kernels and the warp and
+   direct resolve kernels;
 2. kernel == plain version on the card, bit for bit (tokens, counts,
    phases, words consumed, bytes, flags), one group of 1024 x 1 KB streams;
-   the direct entropy kernel too;
+   the direct entropy and resolve kernels too; then both resolve kernels
+   on those tokens broken on purpose (starved and malformed lanes, a count
+   above the token slots, an mlen above the slot or 0), whole tensors;
 3. main path -- decode_batch_device_e2e(device="cuda") on the bench's e2e
    shape, 4 groups x 1024 streams x 8192 B = 33.6 MB, must equal the input
    with no host fallback, and both kernels must have launched (the direct
-   entropy kernel never);
+   kernels never);
 4. far distances -- 256 x 8 KB streams encoded without a distance cap (the
-   reference's resolve ring flags these) decode with no fallback;
-5. times with CUDA events: each kernel on the staged main-path batch (the
-   entropy kernel in turns with the direct one: direct, new, new, direct)
-   and its plain PyTorch version at the same shape, held bit for bit
-   against both entropy kernels;
+   reference's resolve ring flags these) decode with no fallback; both
+   resolve kernels timed in turns on their tokens, and the resolve kernel
+   at a 64-byte window, where copies read the slot back (its far path),
+   equal to the plain version;
+5. times with CUDA events: each kernel on the staged main-path batch (each
+   in turns with its direct form: direct, new, new, direct) and its plain
+   PyTorch version at the same shape, held bit for bit against both forms;
+   the resolve kernel at windows of 1-16 KB, each equal to the plain
+   version; then both resolve kernels in turns on synthetic lanes of the
+   same size, all literals or all copies, equal to the bytes they spell;
 6. enc kernels == plain versions on the card, bit for bit: both pack
    kernels (the segmented one and the serial one; words, widx, avail, tail
    limbs, ovf), 1024 x 2 KB, for the three literal-tree branches (one
@@ -73,14 +81,16 @@ Phases, in order; any failure raises and the exit code is non-zero:
    direct kernel never; then each round's batch through both kernels,
    equal, timed in turns;
 15. caps -- the group-cap sweep at 12, 16, 24 and 32 groups: v2, the
-   main-path streams G times, both v2 kernels; v3, the staged v3 cell
+   main-path streams G times, both v2 kernels (resolve in turns with its
+   direct form); v3, the staged v3 cell
    tiled to G groups, decode3; kernel times, MB/s, peak device memory,
    bytes equal to the input on the card and no flagged lane;
    then sparse batches the caps put on the card, 32 streams whose tables
    all differ (32 groups of one live lane each: v2 8 KB, v3 32 KB, v3 full
    64 KB in four metablocks), through the drivers at the port's caps:
    equal to the input, no fallback, the call's host clock, peak device
-   memory and kernel times, against the host decoder on the same streams;
+   memory and kernel times (the v2 resolve in turns with its direct
+   form), against the host decoder on the same streams;
 16. probes -- run_probe_v2 at every level and run_probe_v2b at every
    variant of the TPU scripts, launches counted from 0; each kernel's
    outputs held against its plain version bit for bit; ns per row;
@@ -118,6 +128,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BPS = 3.35e12          # H100 SXM device memory, bytes/s
 INT_OPS = 67e12            # float32 outside the tensor cores, ops/s
 CHUNK = 8192
+RESOLVE_WINDOWS = (1024, 2048, 4096, 8192, 16384)  # swept in [times]
 GROUPS = 4
 MAX_DISTANCE = 2032        # bench.py's e2e encode setting
 REF_RING_LIMIT = 4096 - 16  # pallas_resolve.MAX_DEVICE_DISTANCE
@@ -259,7 +270,8 @@ def phase_build(tag: str) -> None:
     log = build.last_build_log.get("brotli_tpu_torch_kernels", "")
     for name, lines in sorted(ptxas_report(log).items()):
         short = next((k for k in ("decode2_direct_kernel", "decode2_kernel",
-                                  "decode3_direct_kernel", "decode3_kernel")
+                                  "decode3_direct_kernel", "decode3_kernel",
+                                  "resolve_direct_kernel", "resolve_kernel")
                       if k in name), None)
         if short:
             print(f"[build] {short}: {'; '.join(lines)}")
@@ -291,20 +303,75 @@ def phase_kernel_vs_plain() -> dict:
     check(d_err == 0, f"direct entropy kernel != plain version ({d_err})")
     tok, count, phase, _ = ker
     check(bool((phase == D.DONE).all()), "entropy kernel left lanes not DONE")
+    rd0 = R.DIRECT_LAUNCHES
     out_k, err_k = R.resolve_tokens(tok, count, tb.mlen, tb.max_mlen)
+    res_d = R.resolve_tokens_direct(tok, count, tb.mlen, tb.max_mlen)
     out_r, err_r = R.resolve_tokens_ref(tok, count, tb.mlen, tb.max_mlen)
     torch.cuda.synchronize()
     r_err = max_abs_err((out_k, err_k), (out_r, err_r))
     check(r_err == 0, f"resolve kernel != plain version (max abs err {r_err})")
-    check(D.KERNEL_LAUNCHES > n0 and R.KERNEL_LAUNCHES > r0,
+    rd_err = max_abs_err(res_d, (out_r, err_r))
+    check(rd_err == 0, f"direct resolve kernel != plain version ({rd_err})")
+    check(D.KERNEL_LAUNCHES > n0 and R.KERNEL_LAUNCHES > r0
+          and R.DIRECT_LAUNCHES > rd0,
           "a kernel wrapper did not count its launch")
     outs, errs = R.unpack_resolved(out_k, err_k, batch.mlens)
     check(not errs.any(), "resolve flagged lanes of the 1 KB batch")
     check(b"".join(outs) == data, "1 KB batch bytes differ from the input")
+    b_err = broken_lanes_vs_plain(tok, count, tb.mlen, tb.max_mlen)
     print(f"[kernel==plain] 1024 lanes x 1 KB: entropy max_abs_err {e_err} "
           f"(direct entropy kernel {d_err}), resolve max_abs_err {r_err} "
-          "(exact equality required)")
-    return {"entropy": e_err, "resolve": r_err}
+          f"(direct resolve kernel {rd_err}; exact equality required)")
+    return {"entropy": e_err, "resolve": max(r_err, b_err)}
+
+
+BAD_TAG2 = (2 << 30) | 1           # a tag-2 token with nothing pending
+BAD_DIST = (3 << 30) | (5 << 22) | 0x3FFFFF  # a fused copy from far back
+
+
+def broken_lanes_vs_plain(tok, count, mlen, max_mlen: int) -> int:
+    """Both resolve kernels against the plain version on lanes broken on
+    purpose, whole tensors (the bytes a flagged lane wrote before its
+    fault, zeros after, and the flags): from a batch's tokens, lanes whose
+    last 3 tokens are dropped (starved), given a tag-2 with nothing pending or a copy from
+    before the lane's start at a seeded token (malformed), a count above
+    the token slots, an mlen above the slot, or mlen 0."""
+    from brotli_tpu_torch.ops import resolve as R
+
+    rng = np.random.default_rng(8)
+    tok, count, mlen = tok.clone(), count.clone(), mlen.clone()
+    n = tok.shape[1]
+    lanes = torch.arange(n, device=tok.device)
+    at = torch.from_numpy(rng.integers(0, 1 << 30, n)).to(tok.device)
+    at = at % count.clamp(min=1)
+    kind = lanes % 8
+    for k, word in ((1, BAD_TAG2), (2, BAD_DIST)):
+        sel = kind == k
+        tok[at[sel], lanes[sel]] = torch.tensor(word, dtype=torch.int64).to(
+            torch.int32).to(tok.device)
+    count = torch.where(kind == 3, (count - 3).clamp(min=0), count)  # starved
+    count = torch.where(kind == 4, count + tok.shape[0], count)  # past cap
+    mlen = torch.where(kind == 5, max_mlen + 1, mlen)            # past slot
+    mlen = torch.where(kind == 6, 0, mlen)
+    want = R.resolve_tokens_ref(tok, count, mlen, max_mlen)
+    got = [f(tok, count, mlen, max_mlen)
+           for f in (R.resolve_tokens, R.resolve_tokens_direct)]
+    torch.cuda.synchronize()
+    errs = [max_abs_err(g, want) for g in got]
+    check(errs == [0, 0], f"resolve kernels != plain version on broken "
+          f"lanes: max_abs_err {errs}")
+    flags = want[1].cpu()
+    n_st = int((flags == R.ERR_STARVED).sum())
+    n_mal = int((flags == R.ERR_MALFORMED).sum())
+    partial = int(((flags != 0) & (want[0].cpu() != 0).any(dim=1)).sum())
+    check(n_st > 0 and n_mal > 0 and partial > 0,
+          f"broken lanes: {n_st} starved, {n_mal} malformed, {partial} "
+          "flagged with bytes: a case not exercised")
+    print(f"[kernel==plain] {n} broken lanes: {n_st} starved, {n_mal} "
+          f"malformed ({partial} flagged lanes hold partial bytes): resolve "
+          f"kernel and direct kernel max_abs_err {errs[0]}, {errs[1]} "
+          "against the plain version (exact equality of whole tensors)")
+    return max(errs)
 
 
 def main_path_streams() -> tuple[bytes, list[bytes]]:
@@ -333,14 +400,15 @@ def phase_main_path(data: bytes, streams: list[bytes]) -> dict:
     D.KERNEL_LAUNCHES = 0
     R.KERNEL_LAUNCHES = 0
     D.DIRECT_LAUNCHES = 0
+    R.DIRECT_LAUNCHES = 0
     t0 = time.perf_counter()
     got = brotli_tpu_torch.decode_batch_device_e2e(batch, device="cuda",
                                                    groups=GROUPS)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = {"entropy": D.KERNEL_LAUNCHES, "resolve": R.KERNEL_LAUNCHES}
-    check(D.DIRECT_LAUNCHES == 0, "the main path launched the direct "
-          "entropy kernel")
+    check(D.DIRECT_LAUNCHES == 0 and R.DIRECT_LAUNCHES == 0,
+          "the main path launched a direct kernel")
     fell = brotli_tpu_torch.fallback_stats()["lanes_fallback"] - fb0
     check(len(got) == len(batch), "wrong number of outputs")
     check(b"".join(got) == expect, "main-path output differs from the input")
@@ -353,10 +421,14 @@ def phase_main_path(data: bytes, streams: list[bytes]) -> dict:
     return launches
 
 
-def phase_far() -> None:
-    """Copies further back than the reference ring's 4080 B decode here."""
+def phase_far(card_str: str) -> dict:
+    """Copies further back than the reference ring's 4080 B decode here;
+    both resolve kernels timed in turns on the batch's tokens; then the
+    resolve kernel at a 64-byte window, where copies read their slot back
+    (the window's far path), against the plain version."""
     import brotli_tpu_torch
     from brotli_tpu_torch.ops import decode2 as D
+    from brotli_tpu_torch.ops import resolve as R
 
     data = corpus(256 * CHUNK)
     streams = brotli_tpu_torch.encode_sharded(data, chunk_size=CHUNK)
@@ -376,6 +448,35 @@ def phase_far() -> None:
     check(fell == 0, f"{fell} far-distance lanes fell back to the host")
     print(f"[far] 256 x 8 KB without max_distance: {far_lanes} lanes copy "
           "from beyond 4080 B; decoded bit-exact, 0 fallback lanes")
+    tb = D.batch_to_torch(batch, "cuda")
+    args = (tok, count, tb.mlen, tb.max_mlen)
+    st = {}
+    turns = in_turns(
+        lambda: st.__setitem__("n", R.resolve_tokens(*args)),
+        lambda: st.__setitem__("o", R.resolve_tokens_direct(*args)))
+    # a fused copy further back than the window and its own length reads
+    # every source byte from the slot: the far path
+    fused_len = (t >> 22) & 0xFF
+    far_reads = int(((t >> 30 == 3) & (dist > R.WINDOW_MIN + fused_len)
+                     & valid).sum().item())
+    check(far_reads > 0, "no copy reaches past a 64-byte window")
+    own = R.launch_config
+    R.launch_config = lambda *a: R.WINDOW_MIN
+    try:
+        small = R.resolve_tokens(*args)
+    finally:
+        R.launch_config = own
+    want = R.resolve_tokens_ref(*args)
+    errs = [max_abs_err(x, want) for x in (st["n"], st["o"], small)]
+    check(errs == [0, 0, 0], f"[far] resolve kernels != plain version "
+          f"(own window, direct, 64-byte window): {errs}")
+    print(f"[far] {card_str}: resolve kernel {turns_str(turns)} on these "
+          f"tokens; "
+          f"at a {R.WINDOW_MIN}-byte window {far_reads} fused copies read "
+          "every source byte back from the slot (the far path); all three "
+          "equal the plain version bit for bit")
+    return {"err": max(errs), "ms": turns["new"],
+            "direct_ms": turns["old"]}
 
 
 def phase_times(streams: list[bytes], card_str: str) -> dict:
@@ -401,15 +502,23 @@ def phase_times(streams: list[bytes], card_str: str) -> dict:
     ent_t = in_turns(ent, lambda: state.__setitem__(
         "d", D.entropy_decode_direct(tb)))
     ent_ms = ent_t["new"]
-    res_ms = device_ms(res)
+    res_t = in_turns(res, lambda: state.__setitem__(
+        "rd", R.resolve_tokens_direct(*state["e"][:2], tb.mlen, tb.max_mlen)))
+    res_ms = res_t["new"]
     # the wrappers zero their token and byte outputs; that fill is inside
     # the times above, so it is timed alone too
     ent_fill = device_ms(lambda: D._alloc_outputs(tb))
     res_fill = device_ms(lambda: R._alloc_outputs(state["e"][0], tb.max_mlen))
     mbps = total / ((ent_ms + res_ms) * 1e-3) / 1e6
     lanes = D.lanes_per_warp(tb.n_lanes, D.sm_count(tb.device))
+    props = torch.cuda.get_device_properties(tb.device)
+    window = R.launch_config(tb.n_lanes, tb.max_mlen,
+                             props.multi_processor_count,
+                             props.shared_memory_per_multiprocessor,
+                             props.max_threads_per_multi_processor)
     print(f"[times] {card_str}: entropy kernel {turns_str(ent_t)}, "
-          f"{lanes} lanes a warp; resolve kernel {res_ms:.4f} ms; per "
+          f"{lanes} lanes a warp; resolve kernel {turns_str(res_t)}, "
+          f"window {window} B a lane; per "
           f"{total} B batch (time_device_fn: CUDA events, best of 3 windows "
           f"of 5 each; of which output allocation and zero-fill "
           f"{ent_fill:.4f} ms and {res_fill:.4f} ms)")
@@ -431,8 +540,25 @@ def phase_times(streams: list[bytes], card_str: str) -> dict:
     d_err = max_abs_err(state["d"], state["pe"])
     check(d_err == 0, f"direct entropy kernel != plain version on the "
           f"main-path batch: {d_err}")
+    rd_err = max_abs_err(state["rd"], state["pr"])
+    check(rd_err == 0, f"direct resolve kernel != plain version on the "
+          f"main-path batch: {rd_err}")
     print(f"[times] {card_str}: plain entropy {pe:.3f} ms, plain resolve "
           f"{pr:.3f} ms on the same batch (CUDA events, one run each)")
+    # the resolve kernel at other windows (through a patched launch_config)
+    own, sweep = R.launch_config, {}
+    for w in RESOLVE_WINDOWS:
+        R.launch_config = lambda *a, w=w: w
+        try:
+            sweep[w] = device_ms(res)
+        finally:
+            R.launch_config = own
+        check(max_abs_err(state["r"], state["pr"]) == 0,
+              f"resolve kernel at a {w}-byte window != plain version")
+    print(f"[times] {card_str}: resolve kernel at a window of "
+          + ", ".join(f"{w} B {t:.4f} ms" for w, t in sweep.items())
+          + f" (launch_config's is {window} B); each equal to the plain "
+          "version")
     # bounds: the words each lane consumed, the tables and per-lane scalars
     # in, the tokens produced and three status words a lane out; then the
     # tokens and counts in, the decoded bytes and a flag a lane out
@@ -448,9 +574,45 @@ def phase_times(streams: list[bytes], card_str: str) -> dict:
           f"resolve {res_bound[0]:.6f} ms ({total} B out; {res_bound[1]})")
     return {"entropy_ms": ent_ms, "resolve_ms": res_ms,
             "direct_entropy_ms": ent_t["old"],
+            "direct_resolve_ms": res_t["old"],
             "plain_entropy_ms": pe, "plain_resolve_ms": pr,
             "entropy_bound": ent_bound, "resolve_bound": res_bound,
             "errs": errs}
+
+
+def phase_resolve_synthetic(card_str: str) -> None:
+    """What a step and a copy cost: both resolve kernels in turns on two
+    batches of the v2 cell's size (4096 lanes of 8192 B, bytes from seed
+    0), one all 3-byte literals, the other one literal and then fused
+    3-byte copies from 3 back, so as many tokens and steps with no copy or
+    with every token a copy.  Both equal the bytes the tokens spell."""
+    from brotli_tpu_torch.ops import resolve as R
+
+    n, mlen = GROUPS * 1024, CHUNK
+    k = -(-mlen // 3)
+    b = np.random.default_rng(0).integers(0, 256, (k, n, 3), dtype=np.uint32)
+    lits = (3 << 24) | b[..., 0] | (b[..., 1] << 8) | (b[..., 2] << 16)
+    cps = lits.copy()
+    cps[1:] = (3 << 30) | (3 << 22) | 3
+    spelled = {"literals": b.transpose(1, 0, 2).reshape(n, 3 * k),
+               "copies": np.tile(b[0], k)}
+    m = torch.full((n,), mlen, dtype=torch.int32, device="cuda")
+    count = torch.full((n,), k, dtype=torch.int32, device="cuda")
+    for name, t in (("literals", lits), ("copies", cps)):
+        args = (torch.from_numpy(t.view(np.int32)).cuda(), count, m, mlen)
+        st = {}
+        turns = in_turns(
+            lambda: st.__setitem__("n", R.resolve_tokens(*args)),
+            lambda: st.__setitem__("o", R.resolve_tokens_direct(*args)))
+        want = torch.from_numpy(
+            spelled[name][:, :mlen].astype(np.uint8)).cuda()
+        for out, err in (st["n"], st["o"]):
+            check(torch.equal(out, want) and not bool(err.any()),
+                  f"synthetic {name}: a resolve kernel's bytes or flags")
+        print(f"[synthetic] {card_str}: {n} lanes x {mlen} B, {k} tokens a "
+              f"lane ({k / 32:.1f} steps of 32), all {name}: resolve kernel "
+              f"{turns_str(turns)}; both kernels spell the tokens' bytes, "
+              "0 flagged lanes")
 
 
 def enc_pack_batch(data: bytes, chunk: int, table_groups: int = 1,
@@ -647,6 +809,8 @@ def phase_enc_main(data: bytes, card_str: str):
     dec0 = brotli_tpu_torch.fallback_stats()["lanes_fallback"]
     D.KERNEL_LAUNCHES = 0
     R.KERNEL_LAUNCHES = 0
+    D.DIRECT_LAUNCHES = 0
+    R.DIRECT_LAUNCHES = 0
     streams, enc_s, seen = encode_counted(data)
     t0 = time.perf_counter()
     got = brotli_tpu_torch.decode_batch_device_e2e(streams, device="cuda")
@@ -654,6 +818,8 @@ def phase_enc_main(data: bytes, card_str: str):
     dec_s = time.perf_counter() - t0
     launches = {"parse": seen["parse_launches"], "pack": seen["launches"],
                 "entropy": D.KERNEL_LAUNCHES, "resolve": R.KERNEL_LAUNCHES}
+    check(D.DIRECT_LAUNCHES == 0 and R.DIRECT_LAUNCHES == 0,
+          "the encode main path's decode launched a direct kernel")
     dec_fell = brotli_tpu_torch.fallback_stats()["lanes_fallback"] - dec0
     check(b"".join(got) == data, "encode -> decode differs from the input")
     check(dec_fell == 0, f"{dec_fell} lanes fell back to the host decoder")
@@ -1143,7 +1309,8 @@ def phase_caps(data: bytes, streams: list[bytes], v3_tb, v3_rows,
             tok, count, _, _ = st["e"]
             st["r"] = R.resolve_tokens(tok, count, tb.mlen, tb.max_mlen)
 
-        e_ms, r_ms = device_ms(ent), device_ms(res)
+        e_ms = device_ms(ent)
+        res()
         _, _, phase, widx = st["e"]
         resolved, err = st["r"]
         want = rows[torch.from_numpy(batch.perm % len(streams)).cuda()]
@@ -1151,7 +1318,14 @@ def phase_caps(data: bytes, streams: list[bytes], v3_tb, v3_rows,
         check(torch.equal(resolved, want), f"v2 at {G} groups: bytes differ")
         check(bool((phase == D.DONE).all()) and not bool(err.any())
               and not over.any(), f"v2 at {G} groups: flagged lanes")
+        # the main path's peak: read before the direct kernel's turns
         peak2 = torch.cuda.max_memory_allocated() / 2**30
+        r_t = in_turns(res, lambda: st.__setitem__(
+            "rd", R.resolve_tokens_direct(*st["e"][:2], tb.mlen, tb.max_mlen)))
+        r_ms = r_t["new"]
+        check(torch.equal(st["r"][0], want)
+              and max_abs_err(st["rd"], st["r"]) == 0,
+              f"v2 at {G} groups: the resolve kernels' bytes or flags differ")
         total = int(batch.mlens.sum())
         mbps2 = total / ((e_ms + r_ms) * 1e-3) / 1e6
         del tb, st, resolved, err, want, batch
@@ -1180,8 +1354,8 @@ def phase_caps(data: bytes, streams: list[bytes], v3_tb, v3_rows,
         mbps3 = n * 4096 / (d_ms * 1e-3) / 1e6
         print(f"[caps] {card_str}: {G} groups: v2 {total} B, entropy "
               f"{e_ms:.4f} ms ({D.lanes_per_warp(n, D.sm_count(o.device))} "
-              f"lanes a warp) + resolve "
-              f"{r_ms:.4f} ms = {mbps2:.2f} MB/s, peak device memory "
+              f"lanes a warp) + resolve {turns_str(r_t)} = {mbps2:.2f} "
+              f"MB/s, peak device memory "
               f"{peak2:.3f} GiB; v3 {n * 4096} B, decode3 {d_ms:.4f} ms = "
               f"{mbps3:.2f} MB/s (launch_config {v3_config(tbG)}), peak "
               f"{peak3:.3f} GiB; bytes equal the input on the card, 0 "
@@ -1262,7 +1436,17 @@ def phase_caps_sparse(data: bytes, card_str: str) -> None:
         def both():
             tok, count, _, _ = D.entropy_decode(tb)
             R.resolve_tokens(tok, count, tb.mlen, tb.max_mlen)
-        return device_ms(both)
+        ms = device_ms(both)
+        args = (*D.entropy_decode(tb)[:2], tb.mlen, tb.max_mlen)
+        st = {}
+        t = in_turns(lambda: st.__setitem__("n", R.resolve_tokens(*args)),
+                     lambda: st.__setitem__("o", R.resolve_tokens_direct(*args)))
+        err = max_abs_err(st["n"], st["o"])
+        check(err == 0, f"sparse v2: resolve kernel != direct kernel ({err})")
+        print(f"[caps sparse] {card_str}: v2 round of {batch.groups} groups: "
+              f"resolve kernel {turns_str(t)}, equal to the direct kernel's "
+              "output bit for bit")
+        return ms
 
     def v3_ms(batch):
         tb = D3.batch_to_torch_v3(batch, "cuda")
@@ -1412,8 +1596,9 @@ def main() -> int:
     probes = phase_probes(card_str)
     data, streams = main_path_streams()
     launches = phase_main_path(data, streams)
-    phase_far()
+    far = phase_far(card_str)
     times = phase_times(streams, card_str)
+    phase_resolve_synthetic(card_str)
     phase_profile(streams, card_str)
     enc_err = phase_enc_kernel_vs_plain()
     phase_enc_card_vs_cpu()
@@ -1455,11 +1640,12 @@ def main() -> int:
                times["entropy_ms"], times["plain_entropy_ms"],
                times["entropy_bound"]),
          "direct_ms": times["direct_entropy_ms"]},
-        row("resolve_tokens", "resolve.cu",
-            "brotli_tpu/ops/pallas_resolve.py:127", launches["resolve"],
-            max(errs["resolve"], times["errs"]["resolve"]),
-            times["resolve_ms"], times["plain_resolve_ms"],
-            times["resolve_bound"]),
+        {**row("resolve_tokens", "resolve.cu",
+               "brotli_tpu/ops/pallas_resolve.py:127", launches["resolve"],
+               max(errs["resolve"], times["errs"]["resolve"], far["err"]),
+               times["resolve_ms"], times["plain_resolve_ms"],
+               times["resolve_bound"]),
+         "direct_ms": times["direct_resolve_ms"]},
         row("greedy_parse", "parse.cu", "brotli_tpu/ops/device_encode.py:325",
             enc_launches["parse"], parse["err"], parse["ms"],
             parse["plain_ms"], parse["bound"]),

@@ -12,6 +12,7 @@ streams); the JAX results are computed once per module.
 """
 
 from pathlib import Path
+import re
 import shutil
 
 import numpy as np
@@ -236,6 +237,22 @@ def test_host_shim_matches_plain(seed):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_direct_shim_matches_plain(seed):
+    """The direct kernel's per-lane code (resolve.cuh resolve_lane) built by
+    g++ == the plain PyTorch version."""
+    if shutil.which("g++") is None:
+        pytest.skip("g++ not found: the host shim cannot be built")
+    cols, mlens = _random_token_lanes(seed)
+    tok, count = D.tokens_from_jax(_rows(cols, max(map(len, cols))))
+    max_mlen = int(mlens.max())
+    mlen_t = torch.from_numpy(mlens.astype(np.int32))
+    host = R.resolve_tokens_host(tok, count, mlen_t, max_mlen, direct=True)
+    ref = R.resolve_tokens_ref(tok, count, mlen_t, max_mlen)
+    for a, b in zip(host, ref):
+        assert torch.equal(a, b)
+
+
 def test_sizes_beyond_the_buffers_are_bounded():
     """A count above the token slots, or an mlen above the output slot,
     never reaches past the buffers: the lane is cut or flagged."""
@@ -245,7 +262,8 @@ def test_sizes_beyond_the_buffers_are_bounded():
     mlen[0], mlen[1] = 6, 9            # lane 1 outgrows the 8-byte slot
     impls = [R.resolve_tokens_ref]
     if shutil.which("g++") is not None:
-        impls.append(R.resolve_tokens_host)
+        impls += [R.resolve_tokens_host,
+                  lambda *a: R.resolve_tokens_host(*a, direct=True)]
     for impl in impls:
         out, err = impl(tok, count, mlen, 8)
         assert err[:2].tolist() == [R.ERR_STARVED, R.ERR_MALFORMED]
@@ -276,3 +294,258 @@ def test_resolve_kernel_matches_plain_on_card():
     assert R.KERNEL_LAUNCHES == before + 1
     for a, b in zip(ker, ref):
         assert torch.equal(a.cpu(), b.cpu())
+
+
+# ---- the warp form (csrc/resolve.cuh resolve_lane_warp) ----
+#
+# Long lanes built with numpy from a seed: hundreds of tokens a lane, so a
+# lane takes many 32-token steps, with tag-1/tag-2 pairs astride a step's
+# edge, faults at the first, a middle and the last token of a step, a
+# malformed token after mlen is reached, short-distance copies longer than
+# a warp, copies longer than 255 bytes, mlen = 0 lanes, a count above the
+# token slots and an mlen above the output slot.  The warp form must equal
+# resolve_tokens_ref on whole tensors (bytes of flagged lanes and flags
+# included) at windows small enough that copies read the slot back, and
+# its good lanes the native host resolver's bytes.  Exact equality.
+
+BAD_TAG2 = (2 << 30) | 1            # a tag-2 with nothing pending
+
+
+def _lane_tokens(rng, n_tok: int, short_dist: bool = False):
+    """A valid token column of about n_tok tokens and its byte count."""
+    col, pos = [], 0
+    while len(col) < n_tok:
+        r = rng.random()
+        if pos == 0 or r < 0.5:
+            bs = rng.integers(0, 256, int(rng.integers(1, 4))).tolist()
+            col.append(_lit(*bs))
+            pos += len(bs)
+        elif r < 0.6 or short_dist:
+            n = int(rng.integers(33, 80))           # d < 32, len > 32
+            col.append(_fused(n, int(rng.integers(1, min(pos, 31) + 1))))
+            pos += n
+        elif r < 0.92:
+            n = int(rng.integers(0, 40))
+            col.append(_fused(n, int(rng.integers(1, pos + 1))))
+            pos += n
+        else:
+            n = int(rng.integers(256, 400))         # tag-1/tag-2 pair
+            col += _long_copy(n, int(rng.integers(1, pos + 1)))
+            pos += n
+        if rng.random() < 0.05:
+            col.append(0)
+    return col, pos
+
+
+def _pad_to(col, k, rng):
+    """Literals until the column holds k tokens (for a token at index k)."""
+    while len(col) < k:
+        col.append(_lit(int(rng.integers(0, 256))))
+    return col
+
+
+def _long_lanes(seed: int):
+    """name -> (token column, mlen, count or None), numpy-seeded."""
+    rng = np.random.default_rng(seed)
+    lanes = {}
+    for i in range(6):
+        col, pos = _lane_tokens(rng, int(rng.integers(200, 400)))
+        lanes[f"long{i}"] = (col, pos, None)
+    col, pos = _lane_tokens(rng, 300, short_dist=True)
+    lanes["short_dist"] = (col, pos, None)
+    for edge in (31, 63, 95):                      # tag-1 last in a step
+        col = _pad_to([], edge, rng) + _long_copy(int(rng.integers(40, 900)), 7)
+        tail, _ = _lane_tokens(rng, 100)
+        lanes[f"pair_at_{edge}"] = (col + tail[1:], None, None)
+    for at in (32, 48, 63, 64):                    # a fault at a step's
+        col = _pad_to([], at, rng) + [BAD_TAG2] + [_lit(1, 2)] * 40
+        lanes[f"fault_tag2_at_{at}"] = (col, None, None)
+        col = _pad_to([], at, rng) + [_fused(5, 10 ** 6)] + [_lit(1)] * 40
+        lanes[f"fault_dist_at_{at}"] = (col, None, None)
+    # a tag-2 right after a long tag-2 copy (taken alone at a small window)
+    # has nothing pending
+    col = _pad_to([], 40, rng) + _long_copy(300, 3) + [BAD_TAG2, _lit(1)]
+    lanes["fault_tag2_after_long_copy"] = (col, None, None)
+    col, pos = _lane_tokens(rng, 120)
+    lanes["malformed_after_mlen"] = (col + [BAD_TAG2, _fused(9, 10 ** 6)],
+                                     pos, None)
+    lanes["mlen0"] = ([_lit(1, 2, 3)] * 5, 0, None)
+    lanes["mlen0_no_tokens"] = ([], 0, None)
+    col, pos = _lane_tokens(rng, 150)
+    lanes["starved"] = (col, pos + 50, None)
+    col, pos = _lane_tokens(rng, 150)
+    lanes["count_past_cap"] = (col, pos + 3, 10 ** 6)
+    col, pos = _lane_tokens(rng, 60)
+    lanes["mlen_past_slot"] = (col, -1, None)       # set to the slot + 1
+    col, pos = _lane_tokens(rng, 200)
+    lanes["cut_mid_copy"] = (col, pos - 7, None)
+    return lanes
+
+
+def _lane_mlen(col):
+    """Bytes a valid column yields (None marks: resolve them all)."""
+    pos, pend = 0, 0
+    for t in col:
+        tag = t >> 30
+        if t == 0:
+            continue
+        if tag == 0:
+            pos += (t >> 24) & 3
+        elif tag == 1:
+            pend = t & 0xFFFFFF
+        elif tag == 2:
+            pos += pend
+            pend = 0
+        else:
+            pos += (t >> 22) & 0xFF
+    return pos
+
+
+@pytest.fixture(scope="module", params=[0, 1])
+def long_lanes(request):
+    """The long lanes as the port's tensors (PADs kept: count includes
+    them) and as JAX rows for the native resolver."""
+    lanes = _long_lanes(request.param)
+    names = list(lanes)
+    cols = [lanes[k][0] for k in names]
+    mlens = np.array([_lane_mlen(c) if m is None else m
+                      for c, m, _ in (lanes[k] for k in names)], np.int64)
+    faulty = [k for k in names if k.startswith("fault")]
+    for k in faulty:                               # ask past the fault
+        mlens[names.index(k)] += 100
+    slot = int(mlens.max())
+    mlens[names.index("mlen_past_slot")] = slot + 1
+    cap = max(map(len, cols))
+    tok = np.zeros((cap, len(names)), np.uint32)
+    for i, c in enumerate(cols):
+        tok[: len(c), i] = c
+    count = np.array([len(c) if lanes[k][2] is None else lanes[k][2]
+                      for k, c in zip(names, cols)], np.int32)
+    t = (torch.from_numpy(tok.view(np.int32)), torch.from_numpy(count),
+         torch.from_numpy(mlens.astype(np.int32)), slot)
+    return names, cols, mlens, t, R.resolve_tokens_ref(*t)
+
+
+@pytest.mark.parametrize("window", [64, 256, 4096])
+def test_warp_form_matches_plain_on_long_lanes(long_lanes, window):
+    """The warp form (host shim) == resolve_tokens_ref, whole tensors."""
+    if shutil.which("g++") is None:
+        pytest.skip("g++ not found: the host shim cannot be built")
+    names, _, _, (tok, count, mlen, slot), ref = long_lanes
+    host = R.resolve_tokens_host(tok, count, mlen, slot, window=window)
+    assert torch.equal(host[1], ref[1])
+    assert torch.equal(host[0], ref[0])
+    flags = dict(zip(names, ref[1].tolist()))
+    assert flags["mlen_past_slot"] == R.ERR_MALFORMED
+    assert not host[0][names.index("mlen_past_slot")].any()
+    assert flags["starved"] == R.ERR_STARVED
+    assert flags["count_past_cap"] == R.ERR_STARVED
+    assert flags["malformed_after_mlen"] == 0
+    assert all(flags[k] == R.ERR_MALFORMED for k in names
+               if k.startswith("fault"))
+    assert all(flags[k] == 0 for k in names
+               if k.startswith(("long", "pair", "mlen0", "short", "cut")))
+
+
+def test_direct_form_matches_plain_on_long_lanes(long_lanes):
+    """The direct kernel's per-lane code (host shim) on the same lanes ==
+    resolve_tokens_ref, whole tensors."""
+    if shutil.which("g++") is None:
+        pytest.skip("g++ not found: the host shim cannot be built")
+    _, _, _, (tok, count, mlen, slot), ref = long_lanes
+    host = R.resolve_tokens_host(tok, count, mlen, slot, direct=True)
+    assert torch.equal(host[1], ref[1])
+    assert torch.equal(host[0], ref[0])
+
+
+def test_warp_form_good_lanes_match_native(long_lanes):
+    """Lanes the warp form leaves unflagged hold the native resolver's
+    bytes; the flagged ones are flagged there too."""
+    if shutil.which("g++") is None:
+        pytest.skip("g++ not found: the host shim cannot be built")
+    names, cols, mlens, (tok, count, mlen, slot), _ = long_lanes
+    out, err = R.resolve_tokens_host(tok, count, mlen, slot, window=128)
+    # the native resolver takes neither a count nor a slot, and flags a
+    # lane whose last token runs past mlen (the port drops those bytes)
+    keep = [i for i, k in enumerate(names)
+            if k not in ("count_past_cap", "mlen_past_slot", "cut_mid_copy")]
+    rows = _rows([cols[i] for i in keep], max(map(len, cols)))
+    m = np.zeros(1024, np.int64)
+    m[: len(keep)] = mlens[keep]
+    host, lens = lz_resolve_batch_v2(rows.reshape(rows.shape[0], -1), m, 1)
+    for j, i in enumerate(keep):
+        if err[i] == 0:
+            assert lens[j] == mlens[i]
+            assert bytes(out[i, : mlens[i]].tolist()) == bytes(
+                host[j, : lens[j]])
+        else:
+            assert lens[j] == -1
+
+
+@pytest.mark.parametrize("window", [64, 2048])
+def test_warp_form_on_jax_lanes(hand, kernel_tokens, window):
+    """The hand lanes and the JAX entropy kernel's tokens through the warp
+    form == the plain version (the far lane decodes: no ring)."""
+    if shutil.which("g++") is None:
+        pytest.skip("g++ not found: the host shim cannot be built")
+    _, toks, mlens, _, _ = hand
+    _, batch, tokens, _ = kernel_tokens
+    expected = np.zeros(P2.NSTREAM, np.int64)
+    expected[: batch.n_streams] = batch.mlens[: batch.n_streams]
+    for rows, ml in ((toks, mlens), (tokens, expected)):
+        tok, count = D.tokens_from_jax(rows)
+        mlen_t = torch.from_numpy(ml.astype(np.int32))
+        host = R.resolve_tokens_host(tok, count, mlen_t, int(ml.max()),
+                                     window=window)
+        ref = R.resolve_tokens_ref(tok, count, mlen_t, int(ml.max()))
+        assert torch.equal(host[0], ref[0]) and torch.equal(host[1], ref[1])
+
+
+def test_launch_config_window():
+    """The window: a power of two that fits the SM's shared memory for the
+    blocks it holds at once, no larger than a slot needs."""
+    # H100: 132 SMs, 233,472 B of shared memory and 2,048 threads an SM
+    assert R.launch_config(4096, 8192, 132, 233472, 2048) == 4096
+    assert R.launch_config(32768, 8192, 132, 233472, 2048) == 2048
+    assert R.launch_config(256, 8192, 132, 233472, 2048) == 8192
+    assert R.launch_config(256, 8190, 132, 233472, 2048) == 16384
+    assert R.launch_config(1024, 1000, 132, 233472, 2048) == 1024
+    assert R.launch_config(8, 0, 132, 233472, 2048) == R.WINDOW_MIN
+
+
+def test_block_shape_matches_the_cuda_source():
+    """launch_config's block shape is the one resolve.cu launches: lanes a
+    block, token-ring bytes a lane, the smallest window."""
+    src = "".join((ROOT / "brotli_tpu_torch" / "csrc" / f).read_text()
+                  for f in ("resolve.cu", "resolve.cuh"))
+
+    def const(name):
+        m = re.search(rf"constexpr \w+ {name} = (\d+);", src)
+        assert m, f"{name} not found in resolve.cu / resolve.cuh"
+        return int(m.group(1))
+
+    assert R.LANES_A_BLOCK == const("RESOLVE_WARPS")
+    assert R.TOKQ_BYTES == 4 * const("TOKQ_CHUNKS") * const("WARP")
+    assert R.WINDOW_MIN == const("RESOLVE_WIN_MIN")
+    assert "RESOLVE_WARPS * ((size_t)win + 4 * TOKQ)" in src
+
+
+@pytest.mark.cuda
+def test_resolve_kernels_match_plain_on_long_lanes(long_lanes, monkeypatch):
+    """On the card: resolve_kernel, the direct kernel, and resolve_kernel at
+    a 64-byte window (copies read the slot back) == the plain version,
+    whole tensors (needs a card)."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA card: the kernels run only on the GPU")
+    _, _, _, (tok, count, mlen, slot), ref = long_lanes
+    dev = torch.device("cuda")
+    args = (tok.to(dev), count.to(dev), mlen.to(dev), slot)
+    n0, d0 = R.KERNEL_LAUNCHES, R.DIRECT_LAUNCHES
+    ker = R.resolve_tokens(*args)
+    direct = R.resolve_tokens_direct(*args)
+    monkeypatch.setattr(R, "launch_config", lambda *a: R.WINDOW_MIN)
+    small = R.resolve_tokens(*args)
+    assert (R.KERNEL_LAUNCHES, R.DIRECT_LAUNCHES) == (n0 + 2, d0 + 1)
+    for got in (ker, direct, small):
+        for a, b in zip(got, ref):
+            assert torch.equal(a.cpu(), b.cpu())
