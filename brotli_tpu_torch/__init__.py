@@ -16,6 +16,11 @@ kernel that CPU tensors take):
                         csrc/decode3.cu
   ops/resolve.py        LZ resolve (brotli_tpu/ops/pallas_resolve.py),
                         kernel csrc/resolve.cu
+  parallel/mesh.py      device slots (one stream each; several a card with
+                        logical=True) and the multi-device encode, v2 and
+                        v3 decode over them (brotli_tpu/parallel/mesh.py)
+  parallel/multihost.py the multi-process layer on torch.distributed (gloo)
+                        (brotli_tpu/parallel/multihost.py)
   build.py              nvcc/g++ builds of csrc/, loaded with ctypes
   device.py             explicit device selection
 
@@ -24,7 +29,10 @@ The round trip on a card is
 device="cuda")`, which gives back the chunks of `data`; streams made with
 `lit_ctx_trees > 1` or `block_types > 1` (context maps, block switching)
 decode through `decode_batch_v3(streams, device="cuda")`, and streams of
-several metablocks through `decode_batch_v3_full`.
+several metablocks through `decode_batch_v3_full`.  Over several device
+slots: `encode_batches_multichip(data, get_mesh(4, logical=True))` and
+`decode_batches_multichip(streams, mesh)` (one card runs the four slots as
+four CUDA streams).
 
 Self-contained: the port imports nothing of brotli_tpu and never imports
 jax.  It keeps its own copy of the host code it needs (numpy, Python and
@@ -53,14 +61,23 @@ from .decode import decode as host_decode
 from .encode import Encoder
 from .encode import encode as host_encode
 from .encode.sharded import encode_sharded
-from .ops.decode2 import decode_batch_device_e2e, fallback_stats
+from .ops.decode2 import (decode_batch_device_e2e, decode_batch_pallas2,
+                          fallback_stats)
 from .ops.decode3 import (decode_batch_v3, decode_batch_v3_full,
                           stage_dictionary)
 from .ops.device_encode import encode_device_batch, encode_fallback_stats
-from .parallel.shard import parallel_encode
+from .parallel import (broadcast_dictionary, broadcast_dictionary_chunks,
+                       decode_batch_v3_multichip, decode_batches_multichip,
+                       decode_multihost, encode_batches_multichip,
+                       encode_multihost, get_local_mesh, get_mesh,
+                       init_multihost, parallel_encode)
 
-__all__ = ["BrotliError", "Encoder", "decode_batch_device_e2e",
-           "decode_batch_v3", "decode_batch_v3_full", "encode_device_batch",
-           "encode_fallback_stats", "encode_sharded", "fallback_stats",
-           "host_decode", "host_encode", "parallel_encode",
+__all__ = ["BrotliError", "Encoder", "broadcast_dictionary",
+           "broadcast_dictionary_chunks", "decode_batch_device_e2e",
+           "decode_batch_pallas2", "decode_batch_v3", "decode_batch_v3_full",
+           "decode_batch_v3_multichip", "decode_batches_multichip",
+           "decode_multihost", "encode_batches_multichip",
+           "encode_device_batch", "encode_fallback_stats", "encode_multihost",
+           "encode_sharded", "fallback_stats", "get_local_mesh", "get_mesh",
+           "host_decode", "host_encode", "init_multihost", "parallel_encode",
            "stage_dictionary"]

@@ -587,9 +587,15 @@ def run_batch_e2e(batch: SharedBatch, device: torch.device | str):
     tb = batch_to_torch(batch, device)
     tok, count, phase, widx = entropy_decode(tb)
     resolved, err = resolve_tokens(tok, count, tb.mlen, tb.max_mlen)
+    return resolved, err, host_phases(batch, phase, widx)
+
+
+def host_phases(batch: SharedBatch, phase: torch.Tensor,
+                widx: torch.Tensor) -> np.ndarray:
+    """The entropy kernel's end phase per lane, fetched to the host, with
+    0xFFFF for lanes that read past their own words."""
     phases = phase.cpu().numpy()
-    phases = np.where(lane_overran(batch, widx.cpu().numpy()), 0xFFFF, phases)
-    return resolved, err, phases
+    return np.where(lane_overran(batch, widx.cpu().numpy()), 0xFFFF, phases)
 
 
 # Lanes that leave the kernels flagged are re-decoded on the host: a large
@@ -613,21 +619,12 @@ def _note_fallbacks(n_lanes: int, n_fallback: int) -> None:
         )
 
 
-def decode_batch_device_e2e(streams: list[bytes], *,
-                            device: torch.device | str = "cuda",
-                            groups: int | None = None) -> list[bytes]:
-    """Decode a batch of shared-table streams with both phases on `device`.
-
-    Same-table streams (encode_sharded output) stage through
-    preflight_shared (rate-sorted), per-group tables through
-    preflight_binned.  Lanes that end in a phase other than DONE, read past
-    their own words, or carry resolve flags are re-decoded by
-    the host decoder; a batch neither preflight accepts (more streams than
-    `groups` groups hold, GROUP_CAP groups by default; more than GROUP_CAP
-    groups of bins) is host-decoded whole.  Every such lane counts in
-    fallback_stats().
-    """
-    dev = resolve_device(device)
+def stage_v2(streams: list[bytes], groups: int | None = None
+             ) -> SharedBatch | None:
+    """The batch of the v2 kernels for `streams`: preflight_shared
+    (rate-sorted, `groups` groups of 1024, GROUP_CAP at most by default),
+    else preflight_binned's bins (at most GROUP_CAP groups); None when
+    neither accepts the streams."""
     if groups is None:
         groups = min(GROUP_CAP, -(-len(streams) // NSTREAM))
     batch = preflight_shared(streams, groups=groups, rate_sort=True)
@@ -635,10 +632,15 @@ def decode_batch_device_e2e(streams: list[bytes], *,
         binned = preflight_binned(streams, max_groups=GROUP_CAP)
         if binned is not None:
             batch = binned[0]
-    if batch is None:
-        _note_fallbacks(len(streams), len(streams))
-        return [host_decode(s) for s in streams]
-    resolved, err, phases = run_batch_e2e(batch, dev)
+    return batch
+
+
+def collect_lanes(batch: SharedBatch, streams: list[bytes],
+                  phases: np.ndarray, resolved: torch.Tensor,
+                  err: torch.Tensor) -> list[bytes]:
+    """Each stream's bytes from a finished batch, in stream order: a lane
+    that ends in a phase other than DONE or carries resolve flags is
+    re-decoded on the host.  Every such lane counts in fallback_stats()."""
     outs, errs = unpack_resolved(resolved, err, batch.mlens)
     results: list[bytes | None] = [None] * batch.n_streams
     n_fallback = 0
@@ -653,3 +655,39 @@ def decode_batch_device_e2e(streams: list[bytes], *,
             results[i] = outs[slot]
     _note_fallbacks(batch.n_streams, n_fallback)
     return results  # type: ignore[return-value]
+
+
+def decode_batch_device_e2e(streams: list[bytes], *,
+                            device: torch.device | str = "cuda",
+                            groups: int | None = None) -> list[bytes]:
+    """Decode a batch of shared-table streams with both phases on `device`.
+
+    Same-table streams (encode_sharded output) stage through
+    preflight_shared (rate-sorted), per-group tables through
+    preflight_binned (stage_v2).  Lanes that end in a phase other than
+    DONE, read past their own words, or carry resolve flags are re-decoded
+    by the host decoder; a batch neither preflight accepts (more streams
+    than `groups` groups hold, GROUP_CAP groups by default; more than
+    GROUP_CAP groups of bins) is host-decoded whole.  Every such lane
+    counts in fallback_stats().
+    """
+    dev = resolve_device(device)
+    batch = stage_v2(streams, groups)
+    if batch is None:
+        _note_fallbacks(len(streams), len(streams))
+        return [host_decode(s) for s in streams]
+    resolved, err, phases = run_batch_e2e(batch, dev)
+    return collect_lanes(batch, streams, phases, resolved, err)
+
+
+def decode_batch_pallas2(streams: list[bytes], *,
+                         device: torch.device | str = "cuda",
+                         groups: int | None = None) -> list[bytes]:
+    """The counterpart of pallas_decode2.decode_batch_pallas2, the v2
+    driver the reference's multi-device decode gives a group that
+    preflight_shared refuses.  The reference resolves its tokens with the
+    host C++ resolver; here both phases run on the device through the
+    port's kernels, so this is decode_batch_device_e2e: preflight_shared,
+    then preflight_binned, then the host decoder for the whole batch,
+    every host-decoded lane counted in fallback_stats()."""
+    return decode_batch_device_e2e(streams, device=device, groups=groups)

@@ -34,6 +34,7 @@ is done in int64 and wrapped back.  Lanes whose pack buffer overflowed
 
 from __future__ import annotations
 
+import functools
 import logging
 from contextlib import contextmanager
 from dataclasses import dataclass
@@ -139,15 +140,25 @@ def ilog2(x: torch.Tensor) -> torch.Tensor:
     return (x.to(torch.float32).view(_I32) >> 23) - 127
 
 
+@functools.cache
+def _table_on(device: torch.device, name: str) -> torch.Tensor:
+    """A constant int32 table of the stages on `device`, staged once per
+    process: a copy from host memory waits for the device's current
+    stream, so staging it inside the stages would hold the host until the
+    stream's earlier stages end, and serialise the slots of a multi-device
+    encode (parallel/mesh.py)."""
+    tables = {"insert": INSERT_LENGTH_OFFSET, "copy": COPY_LENGTH_OFFSET,
+              **{f"ctx{m}": _CONTEXT_LUT[m * 512: m * 512 + 512]
+                 for m in range(4)}}
+    return torch.as_tensor(np.asarray(tables[name], np.int32), device=device)
+
+
 def literal_context(d32: torch.Tensor, n: int, mode: int) -> torch.Tensor:
     """(B, n) literal context ids (0..63) for context `mode`: lut[p1] |
     lut[256 + p2].  The JAX code evaluates the same table as compare-select
     chains over its constant runs (`_ctx_runs`), because a gather is slow on
     the TPU; here it is one lookup per half."""
-    lut = torch.as_tensor(
-        np.asarray(_CONTEXT_LUT[mode * 512: mode * 512 + 512], np.int32),
-        device=d32.device,
-    )
+    lut = _table_on(d32.device, f"ctx{mode}")
     p1 = _shift_right(d32[:, : n], 1)
     p2 = _shift_right(d32[:, : n], 2)
     return lut[p1.long()] | lut[256 + p2.long()]
@@ -431,10 +442,8 @@ def build_records(data_u8, mlen, mdist, is_cs, is_lit, dcode_short, n_valid,
     has_short = is_cs & (dcode_short >= 0)
     code0 = is_cs & (dcode_short == 0)
 
-    ins_off = torch.as_tensor(np.asarray(INSERT_LENGTH_OFFSET, np.int32),
-                              device=dev)
-    cp_off = torch.as_tensor(np.asarray(COPY_LENGTH_OFFSET, np.int32),
-                             device=dev)
+    ins_off = _table_on(dev, "insert")
+    cp_off = _table_on(dev, "copy")
     ins_code = code_from_offsets(ins_len, INSERT_LENGTH_OFFSET)
     cp_code = code_from_offsets(mlen, COPY_LENGTH_OFFSET)
     ins_val = ins_len - ins_off[ins_code.long()]

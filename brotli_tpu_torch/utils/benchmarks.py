@@ -5,7 +5,9 @@ brotli_tpu/utils/benchmarks.py (the reference library's decode bench
 builds Welch's t-test into the benchmark, so a speedup is reported only
 when it is significant).
 
-`time_device_fn` times a function on the card with CUDA events.  The
+`time_device_fn` times a function on the card with CUDA events.  `corpus`
+is the in-repo data the smoke run, the multi-device dryrun and the
+multi-process simulation encode and decode.  The
 reference's `measure_rtt` is left out: it measured the round trip of a
 remote TPU tunnel, which the reference subtracted from every time.  A CUDA
 event is recorded on the card's own stream, so no host round trip sits in
@@ -16,6 +18,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from pathlib import Path
 
 import torch
 
@@ -116,3 +119,16 @@ def time_device_fn(fn, *args, rep: int = 5, samples: int = 3,
         end.synchronize()
         best = min(best, start.elapsed_time(end) / rep)
     return best / 1e3
+
+
+REPO = Path(__file__).resolve().parents[2]
+
+
+def corpus(n_bytes: int) -> bytes:
+    """`n_bytes` of in-repo data: the reference package's sorted .py
+    sources, then the static dictionary, tiled (files read as bytes; the
+    reference package is not imported)."""
+    src = b"".join(p.read_bytes()
+                   for p in sorted((REPO / "brotli_tpu").rglob("*.py")))
+    base = src + (REPO / "brotli_tpu" / "data" / "dictionary.bin").read_bytes()
+    return (base * (n_bytes // len(base) + 1))[:n_bytes]

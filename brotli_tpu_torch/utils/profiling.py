@@ -3,7 +3,9 @@ decode round trip and of the device encode.  The counterpart of
 brotli_tpu/utils/profiling.py (`Phase` and `phase_report` are copies).
 
 Device phases are intervals between CUDA events on the current stream; host
-phases are host-clock intervals.  The device's busy share comes from the
+phases are host-clock intervals.  `device_intervals` and `stream_overlap`
+read a trace's device activity by stream: how long the device was busy and
+how long kernels of two streams ran at once (parallel/mesh.py's slots).  The device's busy share comes from the
 profiler's device activity (kernels and copies) over the profiled window;
 where `key_averages()` holds no device time it is None, reported as "not
 measured", never a host number.  The trace and the profilers raise
@@ -14,6 +16,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import json
 import time
 from pathlib import Path
 from typing import Any
@@ -74,6 +77,48 @@ def busy_share(prof, window_s: float) -> float | None:
     if total <= 0 or window_s <= 0:
         return None
     return total / window_s
+
+
+def device_intervals(trace_json: str | Path
+                     ) -> list[tuple[str, int, float, float]]:
+    """(category, stream, start us, end us) of every kernel, copy and fill
+    in a Chrome trace that trace() wrote."""
+    events = json.loads(Path(trace_json).read_text())["traceEvents"]
+    out = []
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy",
+                                                    "gpu_memset"):
+            stream = e.get("args", {}).get("stream", e.get("tid", -1))
+            t = float(e["ts"])
+            out.append((e["cat"], int(stream), t, t + float(e["dur"])))
+    return out
+
+
+def stream_overlap(intervals) -> dict:
+    """Device seconds with any activity (`busy_s`), and with kernels of two
+    or more streams running at once (`overlap_s`), from device_intervals;
+    `streams`: the streams that ran kernels."""
+    points = []
+    for cat, stream, t0, t1 in intervals:
+        points += [(t0, 1, cat, stream), (t1, -1, cat, stream)]
+    points.sort(key=lambda p: (p[0], p[1]))
+    active: dict[tuple[str, int], int] = {}
+    busy = overlap = 0.0
+    last = None
+    for t, step, cat, stream in points:
+        if last is not None and active:
+            kernel_streams = {s for (c, s), n in active.items()
+                              if c == "kernel" and n}
+            busy += t - last
+            if len(kernel_streams) >= 2:
+                overlap += t - last
+        last = t
+        key = (cat, stream)
+        active[key] = active.get(key, 0) + step
+        if not active[key]:
+            del active[key]
+    return {"busy_s": busy / 1e6, "overlap_s": overlap / 1e6,
+            "streams": sorted({s for c, s, _, _ in intervals if c == "kernel"})}
 
 
 @dataclasses.dataclass

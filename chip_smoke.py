@@ -97,7 +97,31 @@ Phases, in order; any failure raises and the exit code is non-zero:
 17. profile -- profile_e2e_decode on the main-path batch: per-phase times
    and the device's busy share from torch.profiler (Chrome trace in
    brotli_tpu_torch/build/trace/);
-18. entry() -- the port's entry point called once and synchronised.
+18. multi v2 -- the v2 cell's 4 groups through decode_batches_multichip
+   over 4 logical slots (4 CUDA streams on one card): bit-exact, 0
+   fallback lanes, 4 entropy and 4 resolve launches; the wall against the
+   same groups through one slot (best of 3 each, in turns); one profiled
+   4-slot call: the device's busy share and the time kernels of two
+   streams ran at once (Chrome trace in brotli_tpu_torch/build/trace/
+   multi_v2/), and the same overlap from CUDA events around the kernels'
+   wrappers on each slot's stream;
+19. multi enc -- 4 x 1024 x 32 KB (128 MiB) through
+   encode_batches_multichip over 4 slots: each piece byte-identical to
+   encode_device_batch of it, decoded back through
+   decode_batches_multichip with 0 fallback lanes, 4 launches of each of
+   parse, pack, entropy, resolve;
+20. multi v3 -- the v3 cell's first 2,048 streams through
+   decode_batch_v3_multichip over 4 slots in groups of 512, the dictionary
+   staged once: bit-exact, 0 fallback lanes, 4 decode3 launches;
+21. multihost -- brotli_tpu_torch.tools.multihost_sim on the card: 2
+   processes x 2 slots over gloo, 4 x 1024 x 8 KB encoded on the card and
+   decoded back; every process's lists equal the input and the
+   single-process encode;
+22. dryrun -- entry.dryrun_multichip(4) on the card;
+23. entry() -- the port's entry point called once and synchronised.
+
+Each of phases 18-22 sets the launch counters to 0 just before it and
+reads them just after; the kernel line gives them as `multi_launches`.
 
 Kernel times come from utils.benchmarks.time_device_fn (CUDA events) and
 the encoder's stage times from utils.profiling.profile_device_encode,
@@ -187,11 +211,11 @@ def card() -> str:
 
 
 def corpus(n_bytes: int) -> bytes:
-    """The package's sorted .py sources then the static dictionary, tiled."""
-    src = b"".join(p.read_bytes()
-                   for p in sorted((ROOT / "brotli_tpu").rglob("*.py")))
-    base = src + (ROOT / "brotli_tpu" / "data" / "dictionary.bin").read_bytes()
-    return (base * (n_bytes // len(base) + 1))[:n_bytes]
+    """The JAX package's sorted .py sources then the static dictionary,
+    tiled, read as files (utils/benchmarks.corpus)."""
+    from brotli_tpu_torch.utils.benchmarks import corpus as repo_corpus
+
+    return repo_corpus(n_bytes)
 
 
 def device_ms(fn) -> float:
@@ -1479,6 +1503,316 @@ def phase_caps_sparse(data: bytes, card_str: str) -> None:
                    s, device="cuda"), D3, "run_batch_v3", v3_ms, card_str)
 
 
+# ---------------------------------------------------------------------------
+# the scale-out layer: N device slots, each a CUDA stream on this card
+# ---------------------------------------------------------------------------
+
+SLOTS = 4
+
+
+def launches_now() -> dict:
+    """The main-path kernels' launch counters."""
+    from brotli_tpu_torch.ops import decode2 as D
+    from brotli_tpu_torch.ops import decode3 as D3
+    from brotli_tpu_torch.ops import device_encode as E
+    from brotli_tpu_torch.ops import resolve as R
+
+    return {"entropy": D.KERNEL_LAUNCHES, "resolve": R.KERNEL_LAUNCHES,
+            "parse": E.PARSE_LAUNCHES, "pack": E.KERNEL_LAUNCHES,
+            "decode3": D3.KERNEL_LAUNCHES}
+
+
+def zero_launches() -> None:
+    """Every launch counter of the kernels to 0, the direct forms' too."""
+    from brotli_tpu_torch.ops import decode2 as D
+    from brotli_tpu_torch.ops import decode3 as D3
+    from brotli_tpu_torch.ops import device_encode as E
+    from brotli_tpu_torch.ops import resolve as R
+
+    for mod, names in ((D, ("KERNEL_LAUNCHES", "DIRECT_LAUNCHES")),
+                       (R, ("KERNEL_LAUNCHES", "DIRECT_LAUNCHES")),
+                       (D3, ("KERNEL_LAUNCHES", "DIRECT_LAUNCHES")),
+                       (E, ("KERNEL_LAUNCHES", "PARSE_LAUNCHES",
+                            "SERIAL_PACK_LAUNCHES"))):
+        for name in names:
+            setattr(mod, name, 0)
+
+
+def no_direct_launches(what: str) -> None:
+    from brotli_tpu_torch.ops import decode2 as D
+    from brotli_tpu_torch.ops import decode3 as D3
+    from brotli_tpu_torch.ops import device_encode as E
+    from brotli_tpu_torch.ops import resolve as R
+
+    check(D.DIRECT_LAUNCHES == R.DIRECT_LAUNCHES == D3.DIRECT_LAUNCHES
+          == E.SERIAL_PACK_LAUNCHES == 0,
+          f"{what} launched a direct or serial kernel")
+
+
+def wall_s(fn) -> float:
+    """Host clock of fn() through a synchronise."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def fallback_deltas(fn):
+    """(fn(), decode fallback lanes, encode fallback lanes) over fn()."""
+    import brotli_tpu_torch
+
+    d0 = brotli_tpu_torch.fallback_stats()["lanes_fallback"]
+    e0 = brotli_tpu_torch.encode_fallback_stats()["lanes_fallback"]
+    out = fn()
+    return (out, brotli_tpu_torch.fallback_stats()["lanes_fallback"] - d0,
+            brotli_tpu_torch.encode_fallback_stats()["lanes_fallback"] - e0)
+
+
+def wrapper_intervals(fn) -> list[tuple[str, int, float, float]]:
+    """Run fn() with CUDA events recorded on the current stream around
+    every entropy_decode and resolve_tokens call; returns ("kernel",
+    stream id, start us, end us) per call, from one base event, in
+    utils/profiling.device_intervals' form."""
+    from brotli_tpu_torch.ops import decode2 as D
+    from brotli_tpu_torch.ops import resolve as R
+
+    marks = []
+
+    def timed(f):
+        def run(*a, **k):
+            stream = torch.cuda.current_stream()
+            ends = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ends[0].record(stream)
+            out = f(*a, **k)
+            ends[1].record(stream)
+            marks.append((stream.stream_id, *ends))
+            return out
+        return run
+
+    entropy, resolve = D.entropy_decode, R.resolve_tokens
+    base = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    base.record()
+    D.entropy_decode, R.resolve_tokens = timed(entropy), timed(resolve)
+    try:
+        fn()
+    finally:
+        D.entropy_decode, R.resolve_tokens = entropy, resolve
+    torch.cuda.synchronize()
+    return [("kernel", sid, base.elapsed_time(e0) * 1e3,
+             base.elapsed_time(e1) * 1e3) for sid, e0, e1 in marks]
+
+
+def phase_multi_v2(data: bytes, streams: list[bytes], card_str: str) -> dict:
+    """The v2 cell (4 x 1024 x 8 KB) through decode_batches_multichip over
+    SLOTS logical slots, one 1024-stream group a slot: bytes, fallback,
+    launches; then its wall against the same groups through one slot
+    (best of 3 each, in turns), one profiled 4-slot call (the device's
+    busy share and the time kernels of two streams ran at once, from the
+    trace), and one with CUDA events around the kernels' wrappers (the
+    same overlap, where the trace holds no kernel events)."""
+    from brotli_tpu_torch.parallel.mesh import decode_batches_multichip, get_mesh
+    from brotli_tpu_torch.utils.profiling import (device_intervals,
+                                                  stream_overlap, trace)
+
+    batch = streams * GROUPS
+    mesh = get_mesh(SLOTS, "cuda", logical=True)
+    one = get_mesh(1, "cuda", logical=True)
+    check(len({s.stream.cuda_stream for s in mesh}) == SLOTS,
+          "the logical slots do not have streams of their own")
+    zero_launches()
+    t0 = time.perf_counter()
+    got, fell, _ = fallback_deltas(lambda: decode_batches_multichip(batch, mesh))
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    launches = launches_now()
+    no_direct_launches("[multi v2]")
+    check(b"".join(got) == data * GROUPS, "[multi v2] output differs")
+    check(fell == 0, f"[multi v2] {fell} fallback lanes")
+    check(launches["entropy"] == GROUPS and launches["resolve"] == GROUPS,
+          f"[multi v2] launches {launches}, want {GROUPS} of each")
+    walls = {"4": [], "1": []}
+    for _ in range(3):
+        walls["4"].append(wall_s(lambda: decode_batches_multichip(batch, mesh)))
+        walls["1"].append(wall_s(lambda: decode_batches_multichip(batch, one)))
+    out_dir = ROOT / "brotli_tpu_torch" / "build" / "trace" / "multi_v2"
+    with trace(out_dir):
+        t0 = time.perf_counter()
+        decode_batches_multichip(batch, mesh)
+        torch.cuda.synchronize()
+        window = time.perf_counter() - t0
+    ov = stream_overlap(device_intervals(out_dir / "trace.json"))
+    # the profiler's busy share only where its trace holds the kernels
+    busy = ov["busy_s"] / window if ov["streams"] else None
+    t0 = time.perf_counter()
+    ev = stream_overlap(wrapper_intervals(
+        lambda: decode_batches_multichip(batch, mesh)))
+    ev_window = time.perf_counter() - t0
+    w4, w1 = min(walls["4"]), min(walls["1"])
+    print(f"[multi v2] {card_str}: {len(batch)} streams, {len(data) * GROUPS} B "
+          f"over {SLOTS} slots (CUDA streams of cuda:0), bit-exact, 0 "
+          f"fallback lanes, launches {launches}; first call {first:.3f} s; "
+          f"best of 3 (host clock): {SLOTS} slots {w4:.4f} s "
+          f"({', '.join(f'{x:.4f}' for x in walls['4'])}), 1 slot {w1:.4f} s "
+          f"({', '.join(f'{x:.4f}' for x in walls['1'])}), {w1 / w4:.3f}x")
+    trace_ov = (f"{ov['overlap_s'] * 1e3:.4f} ms" if ov["streams"] else
+                "not measured (the trace holds no kernel events)")
+    print(f"[multi v2] {card_str}: profiled {SLOTS}-slot call {window:.4f} s "
+          f"(host clock): device busy share "
+          f"{'not measured' if busy is None else f'{busy:.4f}'} (union of "
+          f"kernels, copies, fills in the torch.profiler trace), kernels of "
+          f"two or more streams at once {trace_ov}, kernel streams "
+          f"{ov['streams']}; trace in {out_dir.relative_to(ROOT)}")
+    print(f"[multi v2] {card_str}: {SLOTS}-slot call {ev_window:.4f} s (host "
+          f"clock) with CUDA events around each entropy and resolve call on "
+          f"its slot's stream (each interval also holds its outputs' "
+          f"allocation): those intervals cover {ev['busy_s'] * 1e3:.4f} ms "
+          f"({ev['busy_s'] / ev_window:.4f} of the call), two or more "
+          f"streams at once {ev['overlap_s'] * 1e3:.4f} ms, over "
+          f"{len(ev['streams'])} streams")
+    return {k: launches[k] for k in ("entropy", "resolve")}
+
+
+def phase_multi_enc(card_str: str) -> dict:
+    """SLOTS x 1024 x 32 KB (128 MiB) of corpus through
+    encode_batches_multichip over SLOTS logical slots at the default knobs:
+    each piece's streams byte-identical to encode_device_batch of that
+    piece, decoded back through decode_batches_multichip with 0 fallback
+    lanes; host-clock walls of each."""
+    import brotli_tpu_torch
+    from brotli_tpu_torch.parallel.mesh import (decode_batches_multichip,
+                                                encode_batches_multichip,
+                                                get_mesh)
+
+    piece = 1024 * ENC_CHUNK
+    data = corpus(SLOTS * piece)
+    mesh = get_mesh(SLOTS, "cuda", logical=True)
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got, _, efell = fallback_deltas(
+        lambda: encode_batches_multichip(data, mesh, chunk_size=ENC_CHUNK))
+    torch.cuda.synchronize()
+    enc_s = time.perf_counter() - t0
+    enc_l = launches_now()
+    t0 = time.perf_counter()
+    back, dfell, _ = fallback_deltas(
+        lambda: decode_batches_multichip(got, mesh))
+    torch.cuda.synchronize()
+    dec_s = time.perf_counter() - t0
+    launches = launches_now()
+    no_direct_launches("[multi enc]")
+    check(efell == 0, f"[multi enc] {efell} lanes host-encoded")
+    check(enc_l["parse"] == SLOTS and enc_l["pack"] == SLOTS,
+          f"[multi enc] encode launches {enc_l}, want {SLOTS} parse and pack")
+    check(b"".join(back) == data, "[multi enc] round trip differs")
+    check(dfell == 0, f"[multi enc] {dfell} decode fallback lanes")
+    check(launches["entropy"] == SLOTS and launches["resolve"] == SLOTS,
+          f"[multi enc] decode launches {launches}")
+    t0 = time.perf_counter()
+    for k in range(SLOTS):
+        single = brotli_tpu_torch.encode_device_batch(
+            data[k * piece:(k + 1) * piece], device="cuda",
+            chunk_size=ENC_CHUNK)
+        check(single == got[k * 1024:(k + 1) * 1024],
+              f"[multi enc] piece {k} differs from encode_device_batch")
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    print(f"[multi enc] {card_str}: {len(data)} B over {SLOTS} slots, "
+          f"{len(got)} streams, ratio {sum(map(len, got)) / len(data):.6f}; "
+          f"encode_batches_multichip {enc_s:.3f} s (host clock, first "
+          f"call), each piece byte-identical to encode_device_batch of it "
+          f"({SLOTS} such calls in turn {one_s:.3f} s); decoded back "
+          f"bit-exact by decode_batches_multichip in {dec_s:.3f} s; 0 ovf "
+          f"lanes, 0 fallback lanes; launches {launches}")
+    return {k: launches[k] for k in ("parse", "pack", "entropy", "resolve")}
+
+
+def phase_multi_v3(data: bytes, streams: list[bytes], card_str: str) -> dict:
+    """The v3 cell's first 2,048 streams through decode_batch_v3_multichip
+    over SLOTS logical slots, groups of 512, the dictionary staged once."""
+    from brotli_tpu_torch.parallel.mesh import (broadcast_dictionary_chunks,
+                                                decode_batch_v3_multichip,
+                                                get_mesh)
+
+    mesh = get_mesh(SLOTS, "cuda", logical=True)
+    bcast = broadcast_dictionary_chunks(mesh)
+    check(len(bcast) == 1, f"the dictionary was staged {len(bcast)} times "
+          "for one card")
+    zero_launches()
+    t0 = time.perf_counter()
+    got, fell, _ = fallback_deltas(lambda: decode_batch_v3_multichip(
+        streams, mesh, group_size=512, dict_bcast=bcast))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = launches_now()
+    no_direct_launches("[multi v3]")
+    check(b"".join(got) == data, "[multi v3] output differs from the input")
+    check(fell == 0, f"[multi v3] {fell} fallback lanes")
+    check(launches["decode3"] == len(streams) // 512,
+          f"[multi v3] decode3 launches {launches['decode3']}")
+    print(f"[multi v3] {card_str}: {len(streams)} streams, {len(data)} B "
+          f"through decode_batch_v3_multichip over {SLOTS} slots, groups of "
+          f"512, one staged dictionary: bit-exact, 0 fallback lanes, decode3 "
+          f"launches {launches['decode3']}; {dt:.3f} s (host clock; the "
+          "groups run in turn, each behind its host preflight)")
+    return {"decode3": launches["decode3"]}
+
+
+def phase_multihost(card_str: str) -> None:
+    """tools/multihost_sim.py on the card: 2 processes x 2 logical slots on
+    cuda:0 over gloo, 4 x 1024 x 8 KB encoded on the card and decoded
+    back; every process's lists equal the input and the single-process
+    port's encode.  A timeout or a non-zero exit fails the run."""
+    from brotli_tpu_torch.parallel.mesh import (encode_batches_multichip,
+                                                get_mesh)
+    from brotli_tpu_torch.tools.multihost_sim import list_digest
+
+    torch.cuda.empty_cache()   # the workers share this card
+    cmd = [sys.executable, "-m", "brotli_tpu_torch.tools.multihost_sim",
+           "--device", "cuda", "--streams", str(GROUPS * 1024),
+           "--chunk", str(CHUNK), "--timeout", "240"]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                       timeout=300)
+    dt = time.perf_counter() - t0
+    lines = r.stdout.strip().splitlines()
+    check(r.returncode == 0, f"[multihost] rc {r.returncode}: {lines[-1:]} "
+          f"{r.stderr[-2000:]}")
+    rows = [json.loads(x) for x in lines if x.startswith("{")]
+    workers, summary = rows[:-1], rows[-1]
+    data = corpus(GROUPS * 1024 * CHUNK)
+    single = encode_batches_multichip(data, get_mesh(1, "cuda"),
+                                      chunk_size=CHUNK)
+    want = list_digest([data[i:i + CHUNK] for i in range(0, len(data), CHUNK)])
+    check(summary["multihost_sim"] == "ok" and len(workers) == 2,
+          f"[multihost] {summary}")
+    for w in workers:
+        check(w["streams_sha256"] == list_digest(single),
+              f"[multihost] process {w['process']}'s streams differ from "
+              "the single-process encode")
+        check(w["decoded_sha256"] == want,
+              f"[multihost] process {w['process']}'s output differs")
+    print(f"[multihost] {card_str}: 2 processes x 2 slots on cuda:0 (gloo): "
+          f"{len(data)} B encoded on the card and decoded back, every "
+          f"process's lists equal the input and the single-process encode; "
+          f"workers {', '.join('%.3f' % w['wall_s'] for w in workers)} s "
+          f"of work each, whole simulation {dt:.3f} s (host clock, process "
+          "start-up included)")
+
+
+def phase_dryrun(card_str: str) -> None:
+    from brotli_tpu_torch.entry import dryrun_multichip
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    walls = dryrun_multichip(SLOTS, timeout_s=240)
+    print(f"[dryrun] {card_str}: dryrun_multichip({SLOTS}) on the card in "
+          f"{time.perf_counter() - t0:.3f} s (host clock): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in walls.items()))
+
+
 # integer operations of one row for one tile element, counted from the
 # TPU scripts' row bodies (tools/probe_v2.py:20-48, tools/probe_v2b.py:
 # 22-27).  probe_v2: level 1 xor, add, add, and (4); each of the 4 peeks
@@ -1615,6 +1949,8 @@ def main() -> int:
     # each lane's expected bytes, in the staged batch's lane order
     v3_rows = torch.frombuffer(bytearray(v3_data), dtype=torch.uint8).view(
         -1, V3_BENCH["chunk_size"])[torch.from_numpy(v3_batch.perm)].cuda()
+    # the first 2,048 streams and their bytes for [multi v3]
+    v3_multi = (v3_data[:2048 * V3_BENCH["chunk_size"]], v3_streams[:2048])
     del v3_data, v3_streams
     v3_times = phase_v3_times(v3_batch, card_str)
     del v3_batch
@@ -1622,15 +1958,36 @@ def main() -> int:
     phase_caps(data, streams, v3_times.pop("tb"), v3_rows, card_str)
     del v3_rows
     phase_caps_sparse(data, card_str)
+    # the scale-out layer: each phase counts its launches from 0
+    multi = {}
+    for tag, run in (("multi v2", lambda: phase_multi_v2(data, streams,
+                                                          card_str)),
+                     ("multi enc", lambda: phase_multi_enc(card_str)),
+                     ("multi v3", lambda: phase_multi_v3(*v3_multi,
+                                                         card_str))):
+        t0 = time.perf_counter()
+        multi[tag] = run()
+        print(f"[wall] [{tag}] {time.perf_counter() - t0:.3f} s ({card_str})")
+    del v3_multi
+    for tag, run in (("multihost", phase_multihost), ("dryrun", phase_dryrun)):
+        t0 = time.perf_counter()
+        run(card_str)
+        print(f"[wall] [{tag}] {time.perf_counter() - t0:.3f} s ({card_str})")
     phase_entry()
     check_no_reference_imports()
 
     def row(name, source, replaces, n, err, ms, plain, bound):
+        key = {"entropy_decode": "entropy", "resolve_tokens": "resolve",
+               "greedy_parse": "parse", "pack_records": "pack",
+               "decode3": "decode3"}.get(name)
         return {"name": name, "route": "cuda",
                 "source": f"brotli_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": n, "max_abs_err": err,
                 "ms": ms, "plain_ms": plain, "bound_ms": bound[0],
-                "bound_by": bound[1], "library_ms": None}
+                "bound_by": bound[1], "library_ms": None,
+                # launches on the scale-out phases, each counted from 0
+                "multi_launches": {tag: c[key] for tag, c in multi.items()
+                                   if key in c}}
 
     pv2, pv2b = probes["probe_v2"], probes["probe_v2b"]
     kernels = [
