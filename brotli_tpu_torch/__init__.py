@@ -16,6 +16,10 @@ kernel that CPU tensors take):
                         csrc/decode3.cu
   ops/resolve.py        LZ resolve (brotli_tpu/ops/pallas_resolve.py),
                         kernel csrc/resolve.cu
+  ops/device_zopfli.py  the quality-10 Zopfli DP
+                        (brotli_tpu/ops/device_zopfli.py): matches and
+                        backtrack on the host, the node relaxation in
+                        the kernel csrc/zopfli.cu
   parallel/mesh.py      device slots (one stream each; several a card with
                         logical=True) and the multi-device encode, v2 and
                         v3 decode over them (brotli_tpu/parallel/mesh.py)
@@ -32,7 +36,8 @@ decode through `decode_batch_v3(streams, device="cuda")`, and streams of
 several metablocks through `decode_batch_v3_full`.  Over several device
 slots: `encode_batches_multichip(data, get_mesh(4, logical=True))` and
 `decode_batches_multichip(streams, mesh)` (one card runs the four slots as
-four CUDA streams).
+four CUDA streams).  `zopfli_commands_device(data)` gives the host q10
+parse's commands and last insert for one stream, its DP on the card.
 
 Self-contained: the port imports nothing of brotli_tpu and never imports
 jax.  It keeps its own copy of the host code it needs (numpy, Python and
@@ -66,6 +71,7 @@ from .ops.decode2 import (decode_batch_device_e2e, decode_batch_pallas2,
 from .ops.decode3 import (decode_batch_v3, decode_batch_v3_full,
                           stage_dictionary)
 from .ops.device_encode import encode_device_batch, encode_fallback_stats
+from .ops.device_zopfli import zopfli_commands_device
 from .parallel import (broadcast_dictionary, broadcast_dictionary_chunks,
                        decode_batch_v3_multichip, decode_batches_multichip,
                        decode_multihost, encode_batches_multichip,
@@ -80,4 +86,4 @@ __all__ = ["BrotliError", "Encoder", "broadcast_dictionary",
            "encode_device_batch", "encode_fallback_stats", "encode_multihost",
            "encode_sharded", "fallback_stats", "get_local_mesh", "get_mesh",
            "host_decode", "host_encode", "init_multihost", "parallel_encode",
-           "stage_dictionary"]
+           "stage_dictionary", "zopfli_commands_device"]

@@ -13,7 +13,8 @@ native/__init__.py builds the host codec's C++ library through `_build`
 too.
 
 The parallel nvcc build of the first four sources took 3.5 s on the
-H100's host where one nvcc command over them took 9.6 s.
+H100's host where one nvcc command over them took 9.6 s.  A source may
+carry flags of its own (SOURCE_FLAGS).
 
 Each build is gated on a hash of its sources, headers and command, written
 beside the library, so a checkout always runs code built from its own
@@ -40,7 +41,10 @@ NVCC_FLAGS = [
 ]
 NVCC_LINK_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-shared"]
 KERNEL_SOURCES = ["decode2.cu", "decode3.cu", "resolve.cu", "pack.cu",
-                  "parse.cu", "probe.cu"]
+                  "parse.cu", "probe.cu", "zopfli.cu"]
+# flags of one source only: the Zopfli DP's float64 costs are sums in the
+# host's order, and no multiply-add may contract one
+SOURCE_FLAGS = {"zopfli.cu": ["-fmad=false"]}
 HOST_FLAGS = ["-std=c++17", "-O2", "-fPIC"]
 HOST_LINK_FLAGS = ["-shared"]
 
@@ -62,6 +66,7 @@ _RESOLVE_ARGS = _RESOLVE_DIRECT_ARGS + [_I]           # + window bytes
 _PACK_ARGS = [_P] * 13 + [_I] * 9
 _PACK_SERIAL_ARGS = [_P] * 12 + [_I] * 9
 _PARSE_ARGS = [_P] * 6 + [_I] * 6
+_ZOPFLI_ARGS = [_P] * 19 + [_I] * 5
 _PROBE_V2_ARGS = [_P] * 3 + [_I] * 3
 _PROBE_V2B_ARGS = [_P] * 4 + [_I] * 8
 
@@ -91,6 +96,7 @@ def _build(name: str, compiler: list[str], link: list[str],
     h = hashlib.sha256(" ".join(compiler + link).encode())
     for src in sorted(CSRC.glob("*.cuh")) + sources:
         h.update(src.name.encode())
+        h.update(" ".join(SOURCE_FLAGS.get(src.name, [])).encode())
         h.update(src.read_bytes())
     digest = h.hexdigest()
     if out.exists() and stamp.exists() and stamp.read_text().strip() == digest:
@@ -102,8 +108,8 @@ def _build(name: str, compiler: list[str], link: list[str],
     pid = os.getpid()
     tmp = BUILD_DIR / f".lib{name}.{pid}.so"
     objs = [BUILD_DIR / f".{src.stem}.{pid}.o" for src in sources]
-    cmds = [[*compiler, "-c", "-o", str(o), str(src)]
-            for o, src in zip(objs, sources)]
+    cmds = [[*compiler, *SOURCE_FLAGS.get(src.name, []), "-c", "-o", str(o),
+             str(src)] for o, src in zip(objs, sources)]
     cmds.append([*link, "-o", str(tmp), *map(str, objs)])
     try:
         procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
@@ -156,6 +162,7 @@ def kernels_lib() -> ctypes.CDLL:
             "brotli_torch_pack": _PACK_ARGS + [_P],
             "brotli_torch_pack_serial": _PACK_SERIAL_ARGS + [_P],
             "brotli_torch_parse": _PARSE_ARGS + [_P],
+            "brotli_torch_zopfli": _ZOPFLI_ARGS + [_P],
             "brotli_torch_probe_v2": _PROBE_V2_ARGS + [_P],
             "brotli_torch_probe_v2b": _PROBE_V2B_ARGS + [_P],
         })
@@ -181,6 +188,9 @@ def host_lib() -> ctypes.CDLL:
             "brotli_torch_pack_host": _PACK_ARGS,
             "brotli_torch_pack_serial_host": _PACK_SERIAL_ARGS,
             "brotli_torch_parse_host": _PARSE_ARGS,
+            "brotli_torch_zopfli_host": _ZOPFLI_ARGS,
+            "brotli_torch_zopfli_min_len_host": [_P, _I, _I,
+                                                 ctypes.c_double],
             "brotli_torch_probe_v2_host": _PROBE_V2_ARGS,
             "brotli_torch_probe_v2b_host": _PROBE_V2B_ARGS,
         })

@@ -1,9 +1,9 @@
 // Host build of the kernels' per-lane logic (decode2.cuh, decode3.cuh,
-// queue.cuh, resolve.cuh, pack.cuh, parse.cuh, probe.cuh), compiled with
+// queue.cuh, resolve.cuh, pack.cuh, parse.cuh, probe.cuh, zopfli.cuh), compiled with
 // g++ so the CPU tests can hold the exact code the CUDA kernels run against
 // the plain PyTorch versions.  Test-only: the encode and decode paths never call it.
 // The argument layouts are those of the CUDA entry points in decode2.cu,
-// decode3.cu, resolve.cu, pack.cu, parse.cu and probe.cu, without the
+// decode3.cu, resolve.cu, pack.cu, parse.cu, probe.cu and zopfli.cu, without the
 // stream.
 #include <algorithm>
 #include <cstdint>
@@ -15,6 +15,7 @@
 #include "parse.cuh"
 #include "probe.cuh"
 #include "resolve.cuh"
+#include "zopfli.cuh"
 
 using namespace brotli_torch;
 
@@ -495,4 +496,71 @@ extern "C" int brotli_torch_probe_v2b_host(const void* a, const void* wt,
   else
     return 1;
   return 0;
+}
+
+// The warp of csrc/zopfli.cu is a loop here: a byte at a time for a match
+// length, a length at a time for a relaxation, the same steps in order.
+struct HostSteps {
+  bool leader() const { return true; }
+  void sync() const {}
+  i32 match_length(const u8* a, const u8* b, i32 limit) const {
+    i32 k = 0;
+    while (k < limit && a[k] == b[k]) ++k;
+    return k;
+  }
+  template <class F>
+  void lengths(i32 lo, i32 hi, F f) const {
+    for (i32 l = lo; l <= hi; ++l) f(l);
+  }
+};
+
+extern "C" int brotli_torch_zopfli_host(
+    const void* data, const void* lit, const void* cmd, const void* dist,
+    const void* min_cost_cmd, const void* start_cache, const void* n_valid,
+    const void* moff, const void* mlen, const void* mdist, const void* mdelta,
+    const void* active, void* cost, void* len, void* ndist, void* dci,
+    void* sc, void* result, void* tried, int n_lanes, int n_max, int stride,
+    int max_zlen, int sms) {
+  (void)sms;
+  if (n_lanes <= 0 || n_max <= 0 || stride < n_max) return 1;
+  const HostSteps w;
+  for (int lane = 0; lane < n_lanes; ++lane) {
+    const i64 nrow = (i64)lane * (n_max + 1);
+    const ZopfliNodes N{(double*)cost + nrow, (u32*)len + nrow,
+                        (i32*)ndist + nrow, (u32*)dci + nrow, (i32*)sc + nrow};
+    const ZopfliLane L{(const u8*)data + (i64)lane * stride,
+                       (const double*)lit + (i64)lane * (n_max + 2),
+                       (const double*)cmd + (i64)lane * ZOPFLI_NUM_CMD,
+                       (const double*)dist + (i64)lane * ZOPFLI_DIST_ROW,
+                       ((const double*)min_cost_cmd)[lane],
+                       (const i32*)start_cache + 4 * lane,
+                       (const i32*)moff + nrow,
+                       (const i32*)mlen,
+                       (const i32*)mdist,
+                       (const i32*)mdelta,
+                       (const u8*)active + (i64)lane * n_max,
+                       ((const i32*)n_valid)[lane],
+                       max_zlen};
+    i32* res = (i32*)result + (i64)lane * n_max;
+    for (i32 i = 0; i <= n_max; ++i) zopfli_nodes_init(N, i);
+    std::fill(res, res + n_max, 0);
+    ZopfliQueue q;
+    zopfli_queue_init(q);
+    i64 n_tried = 0;
+    for (i32 pos = 0; pos + 3 < L.n; ++pos) {
+      if (!L.active[pos]) continue;
+      const ZopfliStep s = zopfli_step(w, L, N, q, pos);
+      res[pos] = s.result;
+      n_tried += s.tried;
+    }
+    ((i64*)tried)[lane] = n_tried;
+  }
+  return 0;
+}
+
+// zopfli_min_copy_len alone, for the tests: the minimum copy length at pos
+// over the node costs cost[0 .. n].
+extern "C" int brotli_torch_zopfli_min_len_host(const void* cost, int n,
+                                                int pos, double min_cost) {
+  return zopfli_min_copy_len((const double*)cost, n, pos, min_cost);
 }

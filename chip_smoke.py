@@ -118,10 +118,22 @@ Phases, in order; any failure raises and the exit code is non-zero:
    decoded back; every process's lists equal the input and the
    single-process encode;
 22. dryrun -- entry.dryrun_multichip(4) on the card;
-23. entry() -- the port's entry point called once and synchronised.
+23. entry() -- the port's entry point called once and synchronised;
+24. zopfli -- the q10 Zopfli DP kernel (csrc/zopfli.cu, built with
+   -fmad=false) == zopfli_dp_ref on CUDA tensors, every node array, result
+   and count bit for bit, 2 lanes x 2 KB; zopfli_commands_device(64 KB of
+   the corpus, device="cuda") == the port's host q10 parse (commands and
+   last insert), its launches counted from 0; 32 lanes x 8 KB from
+   distinct corpus offsets through one zopfli_dp, each lane's backtrack ==
+   the host's; the kernel's time at 1 x 64 KB and 32 x 8 KB, the host
+   parse's on the same inputs (host clock, the 64 KB three times), and
+   the kernel == zopfli_dp_ref on the 64 KB batch too (the plain version
+   timed there, one run).
 
 Each of phases 18-22 sets the launch counters to 0 just before it and
 reads them just after; the kernel line gives them as `multi_launches`.
+Phase 24 sets the DP kernel's counter to 0 just before its main path,
+zopfli_commands_device, and reads it just after.
 
 Kernel times come from utils.benchmarks.time_device_fn (CUDA events) and
 the encoder's stage times from utils.profiling.profile_device_encode,
@@ -131,7 +143,8 @@ kernels, with each one's bound: the least time the card could take, the
 larger of its bytes (inputs read once, outputs written once, counted from
 this run's data) over 3.35 TB/s and its integer operations over 67 T/s
 (the float32 rate outside the tensor cores, the nearest published peak:
-a lower bound on the time).  The last line is {"ok": true, "device": {...}}.
+a lower bound on the time); the Zopfli DP's operations are float64, over
+34 TFLOP/s.  The last line is {"ok": true, "device": {...}}.
 Without a CUDA card it exits non-zero and prints no result.  It imports
 nothing of JAX and nothing of the JAX package (brotli_tpu): it checks both
 before and after its phases.
@@ -1515,11 +1528,12 @@ def launches_now() -> dict:
     from brotli_tpu_torch.ops import decode2 as D
     from brotli_tpu_torch.ops import decode3 as D3
     from brotli_tpu_torch.ops import device_encode as E
+    from brotli_tpu_torch.ops import device_zopfli as Z
     from brotli_tpu_torch.ops import resolve as R
 
     return {"entropy": D.KERNEL_LAUNCHES, "resolve": R.KERNEL_LAUNCHES,
             "parse": E.PARSE_LAUNCHES, "pack": E.KERNEL_LAUNCHES,
-            "decode3": D3.KERNEL_LAUNCHES}
+            "decode3": D3.KERNEL_LAUNCHES, "zopfli": Z.KERNEL_LAUNCHES}
 
 
 def zero_launches() -> None:
@@ -1527,13 +1541,15 @@ def zero_launches() -> None:
     from brotli_tpu_torch.ops import decode2 as D
     from brotli_tpu_torch.ops import decode3 as D3
     from brotli_tpu_torch.ops import device_encode as E
+    from brotli_tpu_torch.ops import device_zopfli as Z
     from brotli_tpu_torch.ops import resolve as R
 
     for mod, names in ((D, ("KERNEL_LAUNCHES", "DIRECT_LAUNCHES")),
                        (R, ("KERNEL_LAUNCHES", "DIRECT_LAUNCHES")),
                        (D3, ("KERNEL_LAUNCHES", "DIRECT_LAUNCHES")),
                        (E, ("KERNEL_LAUNCHES", "PARSE_LAUNCHES",
-                            "SERIAL_PACK_LAUNCHES"))):
+                            "SERIAL_PACK_LAUNCHES")),
+                       (Z, ("KERNEL_LAUNCHES",))):
         for name in names:
             setattr(mod, name, 0)
 
@@ -1900,6 +1916,145 @@ def phase_profile(streams: list[bytes], card_str: str) -> None:
           f"{summ['e2e_mbps']:.2f} MB/s; top device time: {top_s}")
 
 
+# ---------------------------------------------------------------------------
+# the quality-10 Zopfli DP
+# ---------------------------------------------------------------------------
+
+FP64_OPS = 34e12            # float64 outside the tensor cores, FLOP/s
+ZOPFLI_MAIN = 65536         # the driver's shape: one stream, B = 1
+ZOPFLI_LANES, ZOPFLI_LANE = 32, 8192
+ZOPFLI_PLAIN = (2, 2048)    # lanes x bytes of the kernel == plain check
+
+
+def host_q10(data: bytes) -> tuple[list, int, float]:
+    """The port's host create_zopfli_backward_references on `data`: its
+    commands as tuples, its last insert, and its host-clock seconds."""
+    from brotli_tpu_torch.encode.api import _NO_MASK, _padded
+    from brotli_tpu_torch.encode.backward_refs_hq import (
+        create_zopfli_backward_references)
+    from brotli_tpu_torch.encode.hash_binary_tree import BinaryTreeHasher
+
+    t0 = time.perf_counter()
+    n = len(data)
+    cmds, _, last = create_zopfli_backward_references(
+        n, 0, _padded(data), _NO_MASK, BinaryTreeHasher(22, n),
+        [4, 11, 15, 16], 0)
+    return cmd_tuples(cmds), last, time.perf_counter() - t0
+
+
+def cmd_tuples(cmds) -> list:
+    return [(c.insert_len, c.copy_len, c.dist_extra, c.cmd_prefix,
+             c.dist_prefix) for c in cmds]
+
+
+def zopfli_bound(zb, nodes) -> tuple[float, str]:
+    """Bytes: every input and output tensor once.  Operations: two float64
+    adds and a compare for each length this run's DP tried (`tried`), at
+    the card's float64 rate outside the tensor cores."""
+    ins = (zb.data, zb.lit_cost, zb.cost_cmd, zb.cost_dist, zb.min_cost_cmd,
+           zb.start_cache, zb.n_valid, zb.moff, zb.mlen, zb.mdist,
+           zb.mdelta, zb.active)
+    n_bytes = sum(t.numel() * t.element_size() for t in (*ins, *nodes))
+    t_bytes = n_bytes / HBM_BPS * 1e3
+    t_ops = 3 * int(nodes.tried.sum()) / FP64_OPS * 1e3
+    return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+
+
+def nodes_err(a, b) -> float:
+    """Largest difference over two ZopfliNodes (cost as float64)."""
+    err = float((a.cost - b.cost).abs().max().item())
+    return max(err, float(max_abs_err(a[1:], b[1:])))
+
+
+def phase_zopfli(card_str: str) -> dict:
+    """The DP kernel == zopfli_dp_ref on CUDA tensors (2 lanes x 2 KB);
+    zopfli_commands_device(device="cuda") on 64 KB == the host q10 parse,
+    its launches counted from 0; the kernel == zopfli_dp_ref on that
+    stream's batch; 32 lanes x 8 KB through one zopfli_dp, each lane's
+    backtrack == the host's; kernel times at the three shapes and the
+    host's on the same inputs."""
+    import brotli_tpu_torch
+    from brotli_tpu_torch.ops import device_zopfli as Z
+
+    big = corpus(ZOPFLI_MAIN + ZOPFLI_LANES * ZOPFLI_LANE)
+    main, rest = big[:ZOPFLI_MAIN], big[ZOPFLI_MAIN:]
+    lanes = [rest[i * ZOPFLI_LANE: (i + 1) * ZOPFLI_LANE]
+             for i in range(ZOPFLI_LANES)]
+    n_small, w_small = ZOPFLI_PLAIN
+    small = Z.stage_zopfli([lane[:w_small] for lane in lanes[:n_small]],
+                           device="cuda")
+    ker = Z.zopfli_dp(small)
+    out = {}
+    plain_small = plain_ms(lambda: out.__setitem__("p",
+                                                   Z.zopfli_dp_ref(small)))
+    err = nodes_err(ker, out["p"])
+    check(err == 0 and all(torch.equal(a, b) for a, b in zip(ker, out["p"])),
+          f"zopfli kernel != plain version ({err})")
+    small_ms = device_ms(lambda: Z._launch(small))
+    print(f"[zopfli kernel==plain] {n_small} lanes x {w_small} B: "
+          f"max_abs_err {err} over cost, nlen, ndist, ndci, nsc, result and "
+          f"tried (exact equality required); {card_str}: kernel "
+          f"{small_ms:.4f} ms, plain zopfli_dp_ref {plain_small:.3f} ms (CUDA "
+          "events, one run)")
+
+    want, want_last, host_s = host_q10(main)
+    Z.KERNEL_LAUNCHES = 0
+    t0 = time.perf_counter()
+    cmds, last = brotli_tpu_torch.zopfli_commands_device(main, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = Z.KERNEL_LAUNCHES
+    check(launches >= 1, "zopfli_commands_device launched no DP kernel")
+    check((cmd_tuples(cmds), last) == (want, want_last),
+          "zopfli_commands_device(64 KB) != the host q10 parse")
+    host_runs = [host_s] + [host_q10(main)[2] for _ in range(2)]
+    t0 = time.perf_counter()
+    zb = Z.stage_zopfli([main], device="cuda")
+    stage_s = time.perf_counter() - t0
+    nodes = Z._launch(zb)
+    ms = device_ms(lambda: Z._launch(zb))
+    bound = zopfli_bound(zb, nodes)
+    plain = plain_ms(lambda: out.__setitem__("m", Z.zopfli_dp_ref(zb)))
+    err_main = nodes_err(nodes, out["m"])
+    check(err_main == 0 and all(torch.equal(a, b)
+                                for a, b in zip(nodes, out["m"])),
+          f"zopfli kernel != plain version at 1 x 64 KB ({err_main})")
+    print(f"[zopfli main] {card_str}: zopfli_commands_device({len(main)} B, "
+          f"device='cuda') == host q10 ({len(want)} commands, last insert "
+          f"{last}), {launches} kernel launch(es), wall {wall:.3f} s (host "
+          f"clock: staging with match collection {stage_s:.3f} s, DP, "
+          f"backtrack); host q10 parse {min(host_runs):.3f} s best of 3 "
+          f"({', '.join(f'{t:.3f}' for t in host_runs)} s)")
+    print(f"[zopfli times] {card_str}: kernel {ms:.4f} ms at 1 x {len(main)} "
+          f"B (time_device_fn: CUDA events, best of 3 windows of 5), "
+          f"{int(nodes.tried.sum())} lengths tried; bound {bound[0]:.6f} ms "
+          f"({bound[1]}), {100 * bound[0] / ms:.5f}% of it; plain "
+          f"zopfli_dp_ref {plain:.3f} ms on the same batch (CUDA events, one "
+          f"run), max_abs_err {err_main}")
+
+    zb32 = Z.stage_zopfli(lanes, device="cuda")
+    nodes32 = Z.zopfli_dp(zb32)
+    host32 = []
+    for b, lane in enumerate(lanes):
+        want_b, last_b, secs = host_q10(lane)
+        host32.append(secs)
+        got, got_last = Z.backtrack(nodes32, b, len(lane))
+        check((cmd_tuples(got), got_last) == (want_b, last_b),
+              f"zopfli lane {b} of {ZOPFLI_LANES} x {ZOPFLI_LANE} B != host")
+    ms32 = device_ms(lambda: Z._launch(zb32))
+    bound32 = zopfli_bound(zb32, nodes32)
+    print(f"[zopfli times] {card_str}: kernel {ms32:.4f} ms at "
+          f"{ZOPFLI_LANES} x {ZOPFLI_LANE} B (every lane's backtrack == host "
+          f"q10), bound {bound32[0]:.6f} ms ({bound32[1]}); host q10 parse "
+          f"{sum(host32):.3f} s for the {ZOPFLI_LANES} lanes one after "
+          f"another ({min(host32):.3f}-{max(host32):.3f} s a lane)")
+    return {"launches": launches, "err": max(err, err_main), "ms": ms,
+            "plain_ms": plain, "plain_small_ms": plain_small,
+            "bound": bound, "small_ms": small_ms, "ms32": ms32,
+            "bound32": bound32, "host_s": min(host_runs),
+            "host32_s": sum(host32)}
+
+
 def phase_entry() -> None:
     """The port's entry(): the entropy kernel on a staged 32-stream batch."""
     from brotli_tpu_torch.entry import entry
@@ -1974,12 +2129,15 @@ def main() -> int:
         run(card_str)
         print(f"[wall] [{tag}] {time.perf_counter() - t0:.3f} s ({card_str})")
     phase_entry()
+    t0 = time.perf_counter()
+    zopfli = phase_zopfli(card_str)
+    print(f"[wall] [zopfli] {time.perf_counter() - t0:.3f} s ({card_str})")
     check_no_reference_imports()
 
     def row(name, source, replaces, n, err, ms, plain, bound):
         key = {"entropy_decode": "entropy", "resolve_tokens": "resolve",
                "greedy_parse": "parse", "pack_records": "pack",
-               "decode3": "decode3"}.get(name)
+               "decode3": "decode3", "zopfli_dp": "zopfli"}.get(name)
         return {"name": name, "route": "cuda",
                 "source": f"brotli_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": n, "max_abs_err": err,
@@ -2023,6 +2181,16 @@ def main() -> int:
         row("probe_v2b", "probe.cu", "tools/probe_v2b.py:17",
             probes["launches"]["probe_v2b"], pv2b["err"], pv2b["ms"],
             pv2b["plain_ms"], pv2b["bound"]),
+        # ms, plain_ms and bound at 1 x 64 KB; host_ms: the host q10 parse
+        {**row("zopfli_dp", "zopfli.cu",
+               "brotli_tpu/ops/device_zopfli.py:166", zopfli["launches"],
+               zopfli["err"], zopfli["ms"], zopfli["plain_ms"],
+               zopfli["bound"]),
+         "ms_2x2k": zopfli["small_ms"],
+         "plain_ms_2x2k": zopfli["plain_small_ms"], "ms_32x8k": zopfli["ms32"],
+         "bound_ms_32x8k": zopfli["bound32"][0],
+         "host_ms": zopfli["host_s"] * 1e3,
+         "host_ms_32x8k": zopfli["host32_s"] * 1e3},
     ]
     print(f"[wall] whole run {time.perf_counter() - t_run:.3f} s (host clock, "
           "builds included)")
