@@ -66,7 +66,9 @@ _RESOLVE_ARGS = _RESOLVE_DIRECT_ARGS + [_I]           # + window bytes
 _PACK_ARGS = [_P] * 13 + [_I] * 9
 _PACK_SERIAL_ARGS = [_P] * 12 + [_I] * 9
 _PARSE_ARGS = [_P] * 6 + [_I] * 6
-_ZOPFLI_ARGS = [_P] * 19 + [_I] * 5
+_ZOPFLI_DIRECT_ARGS = [_P] * 19 + [_I] * 5
+_ZOPFLI_ARGS = [_P] * 20 + [_I] * 6                   # + records; blocks,
+                                                      # window
 _PROBE_V2_ARGS = [_P] * 3 + [_I] * 3
 _PROBE_V2B_ARGS = [_P] * 4 + [_I] * 8
 
@@ -163,6 +165,7 @@ def kernels_lib() -> ctypes.CDLL:
             "brotli_torch_pack_serial": _PACK_SERIAL_ARGS + [_P],
             "brotli_torch_parse": _PARSE_ARGS + [_P],
             "brotli_torch_zopfli": _ZOPFLI_ARGS + [_P],
+            "brotli_torch_zopfli_direct": _ZOPFLI_DIRECT_ARGS + [_P],
             "brotli_torch_probe_v2": _PROBE_V2_ARGS + [_P],
             "brotli_torch_probe_v2b": _PROBE_V2B_ARGS + [_P],
         })
@@ -189,6 +192,7 @@ def host_lib() -> ctypes.CDLL:
             "brotli_torch_pack_serial_host": _PACK_SERIAL_ARGS,
             "brotli_torch_parse_host": _PARSE_ARGS,
             "brotli_torch_zopfli_host": _ZOPFLI_ARGS,
+            "brotli_torch_zopfli_direct_host": _ZOPFLI_DIRECT_ARGS,
             "brotli_torch_zopfli_min_len_host": [_P, _I, _I,
                                                  ctypes.c_double],
             "brotli_torch_probe_v2_host": _PROBE_V2_ARGS,

@@ -503,6 +503,7 @@ extern "C" int brotli_torch_probe_v2b_host(const void* a, const void* wt,
 struct HostSteps {
   bool leader() const { return true; }
   void sync() const {}
+  void mark(int) const {}
   i32 match_length(const u8* a, const u8* b, i32 limit) const {
     i32 k = 0;
     while (k < limit && a[k] == b[k]) ++k;
@@ -512,9 +513,97 @@ struct HostSteps {
   void lengths(i32 lo, i32 hi, F f) const {
     for (i32 l = lo; l <= hi; ++l) f(l);
   }
+  template <class F>
+  void spread(i32 lo, i32 hi, F f) const {
+    for (i32 l = lo; l <= hi; ++l) f(l);
+  }
+  template <class F>
+  void each_thread(F f) const {
+    for (int t = 0; t < 32; ++t) f(t);
+  }
+  template <class F>
+  void each(i32 lo, i32 hi, F f) const {
+    for (i32 i = lo; i < hi; ++i) f(i);
+  }
+  template <class F>
+  u32 ballot(F f) const {
+    u32 mask = 0;
+    for (int j = 0; j < 32; ++j) mask |= (u32)f(j) << j;
+    return mask;
+  }
+
+  template <class F>
+  i32 first_false(i32 lo, F f) const {
+    while (f(lo)) ++lo;
+    return lo;
+  }
+  i32 reduce_max(i32 x) const { return x; }
 };
 
+static ZopfliLane zopfli_host_lane(const void* data, const void* lit, const void* cmd,
+                                   const void* dist, const void* min_cost_cmd,
+                                   const void* start_cache, const void* n_valid,
+                                   const void* moff, const void* mlen, const void* mdist,
+                                   const void* mdelta, const void* active, int lane,
+                                   int n_max, int stride, int max_zlen) {
+  return ZopfliLane{(const u8*)data + (i64)lane * stride,
+                    (const double*)lit + (i64)lane * (n_max + 2),
+                    (const double*)cmd + (i64)lane * ZOPFLI_NUM_CMD,
+                    (const double*)dist + (i64)lane * ZOPFLI_DIST_ROW,
+                    ((const double*)min_cost_cmd)[lane],
+                    (const i32*)start_cache + 4 * lane,
+                    (const i32*)moff + (i64)lane * (n_max + 1),
+                    (const i32*)mlen,
+                    (const i32*)mdist,
+                    (const i32*)mdelta,
+                    (const u8*)active + (i64)lane * n_max,
+                    ((const i32*)n_valid)[lane],
+                    max_zlen};
+}
+
+static ZopfliNodes zopfli_host_nodes(void* cost, void* len, void* ndist, void* dci, void* sc,
+                                     int lane, int n_max) {
+  const i64 nrow = (i64)lane * (n_max + 1);
+  return ZopfliNodes{(double*)cost + nrow, (u32*)len + nrow, (i32*)ndist + nrow,
+                     (u32*)dci + nrow, (i32*)sc + nrow};
+}
+
+// The window kernel's lanes (zopfli_lane_win), at a window of `window`
+// slots; `blocks` is the card's launch shape and unused here.
 extern "C" int brotli_torch_zopfli_host(
+    const void* data, const void* lit, const void* cmd, const void* dist,
+    const void* min_cost_cmd, const void* start_cache, const void* n_valid,
+    const void* moff, const void* mlen, const void* mdist, const void* mdelta,
+    const void* active, void* cost, void* len, void* ndist, void* dci,
+    void* sc, void* result, void* tried, void* rec, int n_lanes, int n_max,
+    int stride, int max_zlen, int blocks, int window) {
+  (void)blocks;
+  if (n_lanes <= 0 || n_max <= 0 || stride < n_max || window < 64 ||
+      (window & (window - 1)) != 0)
+    return 1;
+  const HostSteps w;
+  std::vector<double> tables(ZOPFLI_NUM_CMD + ZOPFLI_DIST_ROW), wcost(window), wlit(window);
+  // len, dist, dci, sc, nx; records; walks
+  std::vector<u32> fields(13 * (size_t)window);
+  u32* f = fields.data();
+  const ZopfliWindow V{ZopfliNodes{wcost.data(), f, (i32*)f + window, f + 2 * window,
+                                   (i32*)f + 3 * window},
+                       wlit.data(), (i32*)f + 4 * window, (i32*)f + 9 * window,
+                       (i32*)f + 5 * window, tables.data(), tables.data() + ZOPFLI_NUM_CMD,
+                       window, 0, 0.0};
+  for (int lane = 0; lane < n_lanes; ++lane) {
+    ((i64*)tried)[lane] = zopfli_lane_win(
+        w,
+        zopfli_host_lane(data, lit, cmd, dist, min_cost_cmd, start_cache, n_valid, moff, mlen,
+                         mdist, mdelta, active, lane, n_max, stride, max_zlen),
+        zopfli_host_nodes(cost, len, ndist, dci, sc, lane, n_max), V,
+        (i32*)rec + (i64)lane * (n_max + 1) * 4, (i32*)result + (i64)lane * n_max, n_max);
+  }
+  return 0;
+}
+
+// The direct kernel's lanes (zopfli_step over device-memory nodes).
+extern "C" int brotli_torch_zopfli_direct_host(
     const void* data, const void* lit, const void* cmd, const void* dist,
     const void* min_cost_cmd, const void* start_cache, const void* n_valid,
     const void* moff, const void* mlen, const void* mdist, const void* mdelta,
@@ -525,22 +614,10 @@ extern "C" int brotli_torch_zopfli_host(
   if (n_lanes <= 0 || n_max <= 0 || stride < n_max) return 1;
   const HostSteps w;
   for (int lane = 0; lane < n_lanes; ++lane) {
-    const i64 nrow = (i64)lane * (n_max + 1);
-    const ZopfliNodes N{(double*)cost + nrow, (u32*)len + nrow,
-                        (i32*)ndist + nrow, (u32*)dci + nrow, (i32*)sc + nrow};
-    const ZopfliLane L{(const u8*)data + (i64)lane * stride,
-                       (const double*)lit + (i64)lane * (n_max + 2),
-                       (const double*)cmd + (i64)lane * ZOPFLI_NUM_CMD,
-                       (const double*)dist + (i64)lane * ZOPFLI_DIST_ROW,
-                       ((const double*)min_cost_cmd)[lane],
-                       (const i32*)start_cache + 4 * lane,
-                       (const i32*)moff + nrow,
-                       (const i32*)mlen,
-                       (const i32*)mdist,
-                       (const i32*)mdelta,
-                       (const u8*)active + (i64)lane * n_max,
-                       ((const i32*)n_valid)[lane],
-                       max_zlen};
+    const ZopfliNodes N = zopfli_host_nodes(cost, len, ndist, dci, sc, lane, n_max);
+    const ZopfliLane L =
+        zopfli_host_lane(data, lit, cmd, dist, min_cost_cmd, start_cache, n_valid, moff, mlen,
+                         mdist, mdelta, active, lane, n_max, stride, max_zlen);
     i32* res = (i32*)result + (i64)lane * n_max;
     for (i32 i = 0; i <= n_max; ++i) zopfli_nodes_init(N, i);
     std::fill(res, res + n_max, 0);

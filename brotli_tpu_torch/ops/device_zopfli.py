@@ -9,7 +9,9 @@ rule and visit schedule; the node relaxation (the 8-entry start-position
 queue, the distance-cache candidates with their byte compares, the
 relaxation of every length of a candidate or a match, all in float64 in the
 host's order) runs as the CUDA kernel csrc/zopfli.cu on CUDA tensors, one
-warp a lane; the backtrack runs on the host.
+warp a lane, its nodes near the current position in a window in shared
+memory (zopfli_dp; the first kernel, every node in device memory, stays as
+zopfli_dp_direct); the backtrack runs on the host.
 
 Where the JAX DP departs from the host, the port follows the host:
 
@@ -22,14 +24,16 @@ Where the JAX DP departs from the host, the port follows the host:
 * the host's quick step (a position whose largest relaxed length reaches
   LONG_COPY_QUICK_STEP skips ahead by it) changes which positions the host
   visits, and so the matches the hasher finds after it.
-  `zopfli_commands_device` runs the DP, finds the first position where the
-  quick step applies and the schedule did not take it, collects the matches
-  again with that skip and runs the DP again.  Each pass is exact up to
-  that position, so the loop ends.
+  `zopfli_commands_device` runs the DP, finds the first position after
+  which the host visits another position than the match schedule did (the
+  quick step and the long-match skip are one skip, so a quick step the
+  schedule already took agrees), collects the matches again with that skip
+  and runs the DP again.  Each pass is exact up to that position, so the
+  loop ends.
 
 A lane is one stream.  CPU tensors take `zopfli_dp_ref`; `zopfli_dp_host`
-runs the kernel's per-lane code built by g++ (csrc/host_shim.cpp), for the
-tests.
+runs either kernel's per-lane code built by g++ (csrc/host_shim.cpp), for
+the tests.
 """
 
 from __future__ import annotations
@@ -66,14 +70,23 @@ from ..encode.command import prefix_encode_copy_distance
 from ..encode.cost_model import INFINITY_COST, ZopfliCostModel
 from ..encode.hash_binary_tree import BinaryTreeHasher
 
-# Launches of the CUDA DP kernel, counted by _launch where it launches.
+# Launches of the CUDA DP kernels, counted where each launches: the window
+# kernel (zopfli_dp) and the direct kernel (zopfli_dp_direct).
 KERNEL_LAUNCHES = 0
+DIRECT_LAUNCHES = 0
 
 START_CACHE = (4, 11, 15, 16)
 NUM_CMD = 704
 DIST_ROW = 1024    # cost_dist padded with +inf past its 544 symbols
 MAX_N = 1 << 25    # a node's copy-length field
 _M32 = 0xFFFFFFFF
+# the window kernel's shared memory (csrc/zopfli.cu): the cost tables, and
+# 68 B a window slot (a node, 24 B; a literal cost, 8 B; the shortcut walk
+# its last relaxation noted, 20 B; a distance-cache record, 16 B)
+TABLE_BYTES = 8 * (NUM_CMD + DIST_ROW)
+SLOT_BYTES = 68
+WINDOW_MIN = 64
+LANES_PER_SM = 8   # the most one-warp blocks launch_config puts on an SM
 _F64 = torch.float64
 _I32 = torch.int32
 
@@ -279,55 +292,139 @@ def _alloc_nodes(zb: ZopfliBatch) -> ZopfliNodes:
         torch.empty(B, dtype=torch.int64, device=dev))
 
 
-def _c_args(zb: ZopfliBatch, out: ZopfliNodes, sms: int) -> list:
-    """The argument list of brotli_torch_zopfli (and its host shim)."""
+def _c_args(zb: ZopfliBatch, out: ZopfliNodes, grid: int) -> list:
+    """The argument list of brotli_torch_zopfli_direct (and its host
+    shim): the tensors' pointers, the sizes, and `grid`, the SM count the
+    kernel sizes its grid by."""
     ins = (zb.data, zb.lit_cost, zb.cost_cmd, zb.cost_dist, zb.min_cost_cmd,
            zb.start_cache, zb.n_valid, zb.moff, zb.mlen, zb.mdist,
            zb.mdelta, zb.active)
     return ([t.data_ptr() for t in (*ins, *out)]
-            + [zb.n_lanes, zb.n_max, zb.data.shape[1], zb.max_zlen, sms])
+            + [zb.n_lanes, zb.n_max, zb.data.shape[1], zb.max_zlen, grid])
+
+
+def _c_args_win(zb: ZopfliBatch, out: ZopfliNodes, blocks: int,
+                window: int) -> tuple[list, torch.Tensor]:
+    """The argument list of brotli_torch_zopfli (and its host shim): the
+    direct kernel's with the records' scratch after the pointers, the
+    block count for the grid and the window last; and the scratch, which
+    must live until the kernel has run."""
+    rec = torch.empty((zb.n_lanes, zb.n_max + 1, 4), dtype=_I32,
+                      device=zb.device)
+    args = _c_args(zb, out, blocks)
+    return args[:19] + [rec.data_ptr()] + args[19:] + [window], rec
+
+
+def launch_config(n_lanes: int, n_max: int, sms: int, smem_block: int,
+                  smem_sm: int) -> tuple[int, int]:
+    """(blocks, window slots) of zopfli_kernel for n_lanes lanes of up to
+    n_max positions on a card of `sms` SMs, `smem_block` bytes of shared
+    memory a block at most (its opt-in limit) and `smem_sm` an SM.  A block
+    is one warp and one lane at a time; the blocks an SM holds (as many as
+    the lanes need, at most LANES_PER_SM) share its shared memory, less the
+    runtime's 1 KB a block and the tables.  The window is the
+    largest power of two of slots that fits, no larger than a lane needs
+    (n_max + 1 nodes) and at least WINDOW_MIN."""
+    per_sm = max(1, min(-(-n_lanes // sms), LANES_PER_SM))
+    room = (min(smem_block, smem_sm // per_sm - 1024)
+            - TABLE_BYTES) // SLOT_BYTES
+    fit = 1 << max(0, room.bit_length() - 1)
+    need = 1 << n_max.bit_length()
+    return min(n_lanes, sms * per_sm), max(WINDOW_MIN, min(fit, need))
+
+
+def card_config(zb: ZopfliBatch) -> tuple[int, int]:
+    """launch_config for `zb` on its card.  A block's opt-in limit is the
+    SM's shared memory less the runtime's 1 KB where PyTorch does not
+    report it."""
+    props = torch.cuda.get_device_properties(zb.device)
+    smem_sm = props.shared_memory_per_multiprocessor
+    return launch_config(
+        zb.n_lanes, zb.n_max, props.multi_processor_count,
+        getattr(props, "shared_memory_per_block_optin", smem_sm - 1024),
+        smem_sm)
+
+
+def _on_card(zb: ZopfliBatch) -> bool:
+    """False for CPU tensors, which take zopfli_dp_ref; True for a checked
+    batch of CUDA tensors; raises on another device."""
+    if zb.device.type == "cpu":
+        return False
+    if zb.device.type != "cuda":
+        raise ValueError(f"unsupported device {zb.device}")
+    _check_batch(zb)
+    return True
 
 
 def zopfli_dp(zb: ZopfliBatch) -> ZopfliNodes:
     """The q10 node relaxation of every lane (see ZopfliNodes).  CPU
-    tensors take zopfli_dp_ref; CUDA tensors launch csrc/zopfli.cu, one
-    warp a lane."""
-    if zb.device.type == "cpu":
-        return zopfli_dp_ref(zb)
-    if zb.device.type != "cuda":
-        raise ValueError(f"unsupported device {zb.device}")
-    _check_batch(zb)
-    return _launch(zb)
+    tensors take zopfli_dp_ref; CUDA tensors launch csrc/zopfli.cu
+    `zopfli_kernel`, one warp a lane with its node window in shared memory,
+    sized by launch_config.  A failed launch raises."""
+    return _launch(zb) if _on_card(zb) else zopfli_dp_ref(zb)
+
+
+def zopfli_dp_direct(zb: ZopfliBatch) -> ZopfliNodes:
+    """zopfli_dp through the first kernel, `zopfli_direct_kernel` (every
+    node in device memory), the yardstick the window kernel is timed
+    against; no main path launches it.  CPU tensors take zopfli_dp_ref."""
+    return _launch_direct(zb) if _on_card(zb) else zopfli_dp_ref(zb)
 
 
 def _launch(zb: ZopfliBatch) -> ZopfliNodes:
-    """The kernel on a checked batch of CUDA tensors."""
+    """The window kernel on a checked batch of CUDA tensors."""
     global KERNEL_LAUNCHES
-    from ..build import kernels_lib
-
     out = _alloc_nodes(zb)
-    sms = torch.cuda.get_device_properties(zb.device).multi_processor_count
-    with torch.cuda.device(zb.device):
-        rc = kernels_lib().brotli_torch_zopfli(
-            *_c_args(zb, out, sms),
-            torch.cuda.current_stream(zb.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"zopfli kernel launch failed: cudaError {rc}")
+    blocks, window = card_config(zb)
+    args, rec = _c_args_win(zb, out, blocks, window)
+    _run("brotli_torch_zopfli", args, zb,
+         f"zopfli kernel ({blocks} blocks, window {window})")
     KERNEL_LAUNCHES += 1
+    del rec  # back to the caching allocator, in this stream's order
     return out
 
 
-def zopfli_dp_host(zb: ZopfliBatch) -> ZopfliNodes:
+def _launch_direct(zb: ZopfliBatch) -> ZopfliNodes:
+    """The direct kernel on a checked batch of CUDA tensors."""
+    global DIRECT_LAUNCHES
+    out = _alloc_nodes(zb)
+    sms = torch.cuda.get_device_properties(zb.device).multi_processor_count
+    _run("brotli_torch_zopfli_direct", _c_args(zb, out, sms), zb,
+         "zopfli direct kernel")
+    DIRECT_LAUNCHES += 1
+    return out
+
+
+def _run(entry: str, args: list, zb: ZopfliBatch, what: str) -> None:
+    """Launch a kernel's C entry on the batch's current stream; raises
+    when it reports an error."""
+    from ..build import kernels_lib
+
+    with torch.cuda.device(zb.device):
+        rc = getattr(kernels_lib(), entry)(
+            *args, torch.cuda.current_stream(zb.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{what} launch failed: cudaError {rc}")
+
+
+def zopfli_dp_host(zb: ZopfliBatch, window: int | None = None) -> ZopfliNodes:
     """csrc/zopfli.cuh's per-lane DP built for the CPU (build.host_lib),
     the warp's steps as loops: for the tests, which hold it against
-    zopfli_dp_ref and the host."""
+    zopfli_dp_ref and the host.  window None runs the direct kernel's code
+    (zopfli_step); a power of two >= WINDOW_MIN runs the window kernel's
+    (zopfli_lane_win) at that many slots."""
     from ..build import host_lib
 
     _check_batch(zb)
     if zb.device.type != "cpu":
         raise ValueError("the host shim takes CPU tensors")
     out = _alloc_nodes(zb)
-    if host_lib().brotli_torch_zopfli_host(*_c_args(zb, out, 0)):
+    if window is None:
+        rc = host_lib().brotli_torch_zopfli_direct_host(*_c_args(zb, out, 0))
+    else:
+        args, _ = _c_args_win(zb, out, 1, window)
+        rc = host_lib().brotli_torch_zopfli_host(*args)
+    if rc:
         raise ValueError("host shim refused the batch")
     return out
 
@@ -547,12 +644,22 @@ def backtrack(nodes: ZopfliNodes, lane: int, n: int):
 
 def _quick_mismatch(result: np.ndarray, active: np.ndarray,
                     quick: dict) -> int | None:
-    """The first visited position where the host's quick step (result >=
-    LONG_COPY_QUICK_STEP) and the schedule's `quick` skips disagree."""
-    hits = np.nonzero(active & (result >= LONG_COPY_QUICK_STEP))[0].tolist()
-    for p in sorted(set(hits) | set(quick)):
-        want = int(result[p]) if p in hits else None
-        if quick.get(p) != want:
+    """The first visited position after which the host visits another
+    position than the schedule did.  The host's quick step and its
+    long-match skip are one `i += skip - 1`: after a position p whose
+    result reaches LONG_COPY_QUICK_STEP it visits p + result[p] (or leaves
+    the loop, at n - 3 or past it), whichever skip the schedule took to
+    get there; elsewhere it takes the long-match skip, which the schedule
+    takes unless `quick` gave p a skip of its own."""
+    end = len(active) - 3
+    vis = np.flatnonzero(active)
+    nxt = np.append(vis[1:], end)
+    hit = result[vis] >= LONG_COPY_QUICK_STEP
+    if quick:
+        hit |= np.isin(vis, list(quick))
+    for k in np.flatnonzero(hit).tolist():
+        p, skip = int(vis[k]), int(result[vis[k]])
+        if skip < LONG_COPY_QUICK_STEP or min(p + skip, end) != nxt[k]:
             return p
     return None
 
@@ -564,8 +671,8 @@ def zopfli_commands_device(data: bytes, quality: int = 10,
     length of the host create_zopfli_backward_references(len(data), 0,
     data, ..., dist_cache=[4, 11, 15, 16], last_insert_len=0), decision for
     decision.  One lane holds the stream.  Where the host's quick step
-    applies at a position that the match schedule did not skip, the
-    matches are collected again with that skip and the DP runs again."""
+    skips elsewhere than the match schedule did, the matches are collected
+    again with that skip and the DP runs again (_quick_mismatch)."""
     n = len(data)
     quick: dict[int, int] = {}
     while True:
@@ -576,4 +683,5 @@ def zopfli_commands_device(data: bytes, quality: int = 10,
         if p is None:
             return backtrack(nodes, 0, n)
         quick = {k: v for k, v in quick.items() if k < p}
-        quick[p] = int(nodes.result[0, p])
+        if int(nodes.result[0, p]) >= LONG_COPY_QUICK_STEP:
+            quick[p] = int(nodes.result[0, p])

@@ -132,3 +132,17 @@ def corpus(n_bytes: int) -> bytes:
                    for p in sorted((REPO / "brotli_tpu").rglob("*.py")))
     base = src + (REPO / "brotli_tpu" / "data" / "dictionary.bin").read_bytes()
     return (base * (n_bytes // len(base) + 1))[:n_bytes]
+
+
+def runs_input(seed: int = 0, repeats: int = 3, rand: int = 300,
+               run: int = 17000) -> bytes:
+    """`repeats` times (51,900 B by default): `rand` random bytes, drawn
+    anew each time from numpy.random.default_rng(seed), then a run of `run`
+    zero bytes.  Each run gives the q10 parse a match longer than its
+    quick-step threshold (16,384), whose skip the long-match skip of its
+    match collection takes too."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return b"".join(rng.integers(0, 256, rand, np.uint8).tobytes()
+                    + bytes(run) for _ in range(repeats))

@@ -7,8 +7,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
 
 1. build  -- nvcc compiles brotli_tpu_torch/csrc/*.cu (sm_90a) at first use,
    and prints nvcc's registers, stack and spills of the queued and direct
-   entropy kernels, the windowed and direct v3 kernels and the warp and
-   direct resolve kernels;
+   entropy kernels, the windowed and direct v3 kernels, the warp and
+   direct resolve kernels and the window and direct Zopfli DP kernels;
 2. kernel == plain version on the card, bit for bit (tokens, counts,
    phases, words consumed, bytes, flags), one group of 1024 x 1 KB streams;
    the direct entropy and resolve kernels too; then both resolve kernels
@@ -119,21 +119,26 @@ Phases, in order; any failure raises and the exit code is non-zero:
    single-process encode;
 22. dryrun -- entry.dryrun_multichip(4) on the card;
 23. entry() -- the port's entry point called once and synchronised;
-24. zopfli -- the q10 Zopfli DP kernel (csrc/zopfli.cu, built with
-   -fmad=false) == zopfli_dp_ref on CUDA tensors, every node array, result
-   and count bit for bit, 2 lanes x 2 KB; zopfli_commands_device(64 KB of
-   the corpus, device="cuda") == the port's host q10 parse (commands and
-   last insert), its launches counted from 0; 32 lanes x 8 KB from
-   distinct corpus offsets through one zopfli_dp, each lane's backtrack ==
-   the host's; the kernel's time at 1 x 64 KB and 32 x 8 KB, the host
-   parse's on the same inputs (host clock, the 64 KB three times), and
-   the kernel == zopfli_dp_ref on the 64 KB batch too (the plain version
-   timed there, one run).
+24. zopfli -- the q10 Zopfli DP's window kernel (csrc/zopfli.cu
+   zopfli_kernel, built with -fmad=false) == its direct kernel
+   (zopfli_direct_kernel) == zopfli_dp_ref on CUDA tensors, every node
+   array, result and count bit for bit, 2 lanes x 2 KB;
+   zopfli_commands_device(device="cuda") on 64 KB of the corpus, on the
+   51,900-B runs input (utils.benchmarks.runs_input) and on bytes(20000)
+   (whose runs reach the host's quick step) == the port's host q10 parse
+   (commands and last insert), one window-kernel launch and no direct one
+   each, counted from 0; then the two kernels equal and timed in turns
+   (direct, window, window, direct) at 1 x 64 KB (the window kernel ==
+   zopfli_dp_ref there too, the plain version timed once), at 32 lanes x
+   8 KB from distinct corpus offsets (each lane's backtrack == the
+   host's) and on the runs input, each with its launch shape (blocks,
+   window, shared memory); the host parse's times on the same inputs
+   (host clock, the 64 KB three times).
 
 Each of phases 18-22 sets the launch counters to 0 just before it and
 reads them just after; the kernel line gives them as `multi_launches`.
-Phase 24 sets the DP kernel's counter to 0 just before its main path,
-zopfli_commands_device, and reads it just after.
+Phase 24 sets the DP kernels' counters to 0 just before each main-path
+call of zopfli_commands_device and reads them just after.
 
 Kernel times come from utils.benchmarks.time_device_fn (CUDA events) and
 the encoder's stage times from utils.profiling.profile_device_encode,
@@ -308,7 +313,8 @@ def phase_build(tag: str) -> None:
     for name, lines in sorted(ptxas_report(log).items()):
         short = next((k for k in ("decode2_direct_kernel", "decode2_kernel",
                                   "decode3_direct_kernel", "decode3_kernel",
-                                  "resolve_direct_kernel", "resolve_kernel")
+                                  "resolve_direct_kernel", "resolve_kernel",
+                                  "zopfli_direct_kernel", "zopfli_kernel")
                       if k in name), None)
         if short:
             print(f"[build] {short}: {'; '.join(lines)}")
@@ -1549,7 +1555,7 @@ def zero_launches() -> None:
                        (D3, ("KERNEL_LAUNCHES", "DIRECT_LAUNCHES")),
                        (E, ("KERNEL_LAUNCHES", "PARSE_LAUNCHES",
                             "SERIAL_PACK_LAUNCHES")),
-                       (Z, ("KERNEL_LAUNCHES",))):
+                       (Z, ("KERNEL_LAUNCHES", "DIRECT_LAUNCHES"))):
         for name in names:
             setattr(mod, name, 0)
 
@@ -1558,10 +1564,11 @@ def no_direct_launches(what: str) -> None:
     from brotli_tpu_torch.ops import decode2 as D
     from brotli_tpu_torch.ops import decode3 as D3
     from brotli_tpu_torch.ops import device_encode as E
+    from brotli_tpu_torch.ops import device_zopfli as Z
     from brotli_tpu_torch.ops import resolve as R
 
     check(D.DIRECT_LAUNCHES == R.DIRECT_LAUNCHES == D3.DIRECT_LAUNCHES
-          == E.SERIAL_PACK_LAUNCHES == 0,
+          == E.SERIAL_PACK_LAUNCHES == Z.DIRECT_LAUNCHES == 0,
           f"{what} launched a direct or serial kernel")
 
 
@@ -1966,15 +1973,49 @@ def nodes_err(a, b) -> float:
     return max(err, float(max_abs_err(a[1:], b[1:])))
 
 
+def zopfli_config(zb) -> str:
+    """The window kernel's launch shape for `zb` on this card."""
+    from brotli_tpu_torch.ops import device_zopfli as Z
+
+    blocks, window = Z.card_config(zb)
+    return (f"{blocks} block(s) of 32 threads, window {window} slots, "
+            f"{Z.TABLE_BYTES + Z.SLOT_BYTES * window} B dynamic shared "
+            "memory a block")
+
+
+def zopfli_pair(zb, what: str, card_str: str) -> dict:
+    """The window kernel (zopfli_dp) == the direct kernel
+    (zopfli_dp_direct) on `zb`, every output bit for bit, then both timed
+    in turns (direct, window, window, direct)."""
+    from brotli_tpu_torch.ops import device_zopfli as Z
+
+    new, old = Z.zopfli_dp(zb), Z.zopfli_dp_direct(zb)
+    err = nodes_err(new, old)
+    check(err == 0 and all(torch.equal(a, b) for a, b in zip(new, old)),
+          f"zopfli window kernel != direct kernel at {what} ({err})")
+    t = in_turns(lambda: Z._launch(zb), lambda: Z._launch_direct(zb))
+    bound = zopfli_bound(zb, new)
+    print(f"[zopfli times] {card_str}: {what}: window kernel "
+          f"{turns_str(t)}, == direct bit for bit; "
+          f"{int(new.tried.sum())} lengths tried; bound {bound[0]:.6f} ms "
+          f"({bound[1]}), {100 * bound[0] / t['new']:.5f}% of it (direct "
+          f"{100 * bound[0] / t['old']:.5f}%); {zopfli_config(zb)}")
+    return {"nodes": new, "ms": t["new"], "direct_ms": t["old"],
+            "bound": bound}
+
+
 def phase_zopfli(card_str: str) -> dict:
-    """The DP kernel == zopfli_dp_ref on CUDA tensors (2 lanes x 2 KB);
-    zopfli_commands_device(device="cuda") on 64 KB == the host q10 parse,
-    its launches counted from 0; the kernel == zopfli_dp_ref on that
-    stream's batch; 32 lanes x 8 KB through one zopfli_dp, each lane's
-    backtrack == the host's; kernel times at the three shapes and the
-    host's on the same inputs."""
+    """The window DP kernel == the direct kernel == zopfli_dp_ref on
+    CUDA tensors (2 lanes x 2 KB); zopfli_commands_device(device="cuda")
+    on 64 KB, on the 51,900-B runs input and on bytes(20000) == the host
+    q10 parse, one window-kernel launch each, counted from 0, and no
+    direct launch; the two kernels equal and timed in turns at 1 x 64 KB
+    (where the plain version runs too), 32 x 8 KB (each lane's backtrack
+    == the host's) and the runs input; the host parse's times on the same
+    inputs."""
     import brotli_tpu_torch
     from brotli_tpu_torch.ops import device_zopfli as Z
+    from brotli_tpu_torch.utils.benchmarks import runs_input
 
     big = corpus(ZOPFLI_MAIN + ZOPFLI_LANES * ZOPFLI_LANE)
     main, rest = big[:ZOPFLI_MAIN], big[ZOPFLI_MAIN:]
@@ -1983,76 +2024,84 @@ def phase_zopfli(card_str: str) -> dict:
     n_small, w_small = ZOPFLI_PLAIN
     small = Z.stage_zopfli([lane[:w_small] for lane in lanes[:n_small]],
                            device="cuda")
-    ker = Z.zopfli_dp(small)
+    ker, old = Z.zopfli_dp(small), Z.zopfli_dp_direct(small)
     out = {}
     plain_small = plain_ms(lambda: out.__setitem__("p",
                                                    Z.zopfli_dp_ref(small)))
-    err = nodes_err(ker, out["p"])
-    check(err == 0 and all(torch.equal(a, b) for a, b in zip(ker, out["p"])),
-          f"zopfli kernel != plain version ({err})")
+    err = max(nodes_err(ker, out["p"]), nodes_err(old, out["p"]))
+    check(err == 0 and all(torch.equal(a, b) and torch.equal(c, b)
+                           for a, c, b in zip(ker, old, out["p"])),
+          f"zopfli kernels != plain version ({err})")
     small_ms = device_ms(lambda: Z._launch(small))
     print(f"[zopfli kernel==plain] {n_small} lanes x {w_small} B: "
           f"max_abs_err {err} over cost, nlen, ndist, ndci, nsc, result and "
-          f"tried (exact equality required); {card_str}: kernel "
-          f"{small_ms:.4f} ms, plain zopfli_dp_ref {plain_small:.3f} ms (CUDA "
-          "events, one run)")
+          f"tried, window and direct kernel (exact equality required); "
+          f"{card_str}: window kernel {small_ms:.4f} ms, plain zopfli_dp_ref "
+          f"{plain_small:.3f} ms (CUDA events, one run); "
+          f"{zopfli_config(small)}")
 
-    want, want_last, host_s = host_q10(main)
-    Z.KERNEL_LAUNCHES = 0
-    t0 = time.perf_counter()
-    cmds, last = brotli_tpu_torch.zopfli_commands_device(main, device="cuda")
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = Z.KERNEL_LAUNCHES
-    check(launches >= 1, "zopfli_commands_device launched no DP kernel")
-    check((cmd_tuples(cmds), last) == (want, want_last),
-          "zopfli_commands_device(64 KB) != the host q10 parse")
-    host_runs = [host_s] + [host_q10(main)[2] for _ in range(2)]
+    runs = runs_input()
+    commands = {}
+    for name, data in (("64 KB", main), ("runs", runs),
+                       ("bytes(20000)", bytes(20000))):
+        want, want_last, host_s = host_q10(data)
+        Z.KERNEL_LAUNCHES = Z.DIRECT_LAUNCHES = 0
+        t0 = time.perf_counter()
+        cmds, last = brotli_tpu_torch.zopfli_commands_device(data,
+                                                             device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = (Z.KERNEL_LAUNCHES, Z.DIRECT_LAUNCHES)
+        check(launches == (1, 0), f"zopfli_commands_device({name}) launched "
+              f"{launches} window / direct kernels, not (1, 0)")
+        check((cmd_tuples(cmds), last) == (want, want_last),
+              f"zopfli_commands_device({name}) != the host q10 parse")
+        commands[name] = (launches[0], wall, host_s, len(want), last)
+    launches = commands["64 KB"][0]
+    host_runs = [commands["64 KB"][2]] + [host_q10(main)[2] for _ in range(2)]
     t0 = time.perf_counter()
     zb = Z.stage_zopfli([main], device="cuda")
     stage_s = time.perf_counter() - t0
-    nodes = Z._launch(zb)
-    ms = device_ms(lambda: Z._launch(zb))
-    bound = zopfli_bound(zb, nodes)
+    m = zopfli_pair(zb, f"1 x {len(main)} B", card_str)
     plain = plain_ms(lambda: out.__setitem__("m", Z.zopfli_dp_ref(zb)))
-    err_main = nodes_err(nodes, out["m"])
+    err_main = nodes_err(m["nodes"], out["m"])
     check(err_main == 0 and all(torch.equal(a, b)
-                                for a, b in zip(nodes, out["m"])),
+                                for a, b in zip(m["nodes"], out["m"])),
           f"zopfli kernel != plain version at 1 x 64 KB ({err_main})")
-    print(f"[zopfli main] {card_str}: zopfli_commands_device({len(main)} B, "
-          f"device='cuda') == host q10 ({len(want)} commands, last insert "
-          f"{last}), {launches} kernel launch(es), wall {wall:.3f} s (host "
-          f"clock: staging with match collection {stage_s:.3f} s, DP, "
-          f"backtrack); host q10 parse {min(host_runs):.3f} s best of 3 "
-          f"({', '.join(f'{t:.3f}' for t in host_runs)} s)")
-    print(f"[zopfli times] {card_str}: kernel {ms:.4f} ms at 1 x {len(main)} "
-          f"B (time_device_fn: CUDA events, best of 3 windows of 5), "
-          f"{int(nodes.tried.sum())} lengths tried; bound {bound[0]:.6f} ms "
-          f"({bound[1]}), {100 * bound[0] / ms:.5f}% of it; plain "
-          f"zopfli_dp_ref {plain:.3f} ms on the same batch (CUDA events, one "
-          f"run), max_abs_err {err_main}")
+    for name, (n_launch, wall, host_s, n_cmds, last) in commands.items():
+        print(f"[zopfli main] {card_str}: zopfli_commands_device({name}, "
+              f"device='cuda') == host q10 ({n_cmds} commands, last insert "
+              f"{last}), {n_launch} window-kernel launch (counted from 0), 0 "
+              f"direct, wall {wall:.3f} s (host clock: staging with match "
+              f"collection, DP, backtrack); host q10 parse {host_s:.3f} s")
+    print(f"[zopfli main] {card_str}: 64 KB staging with match collection "
+          f"{stage_s:.3f} s; host q10 parse {min(host_runs):.3f} s best of 3 "
+          f"({', '.join(f'{t:.3f}' for t in host_runs)} s); plain "
+          f"zopfli_dp_ref {plain:.3f} ms on the 1 x 64 KB batch (CUDA "
+          f"events, one run), max_abs_err {err_main} against the kernels")
 
     zb32 = Z.stage_zopfli(lanes, device="cuda")
-    nodes32 = Z.zopfli_dp(zb32)
+    m32 = zopfli_pair(zb32, f"{ZOPFLI_LANES} x {ZOPFLI_LANE} B", card_str)
     host32 = []
     for b, lane in enumerate(lanes):
         want_b, last_b, secs = host_q10(lane)
         host32.append(secs)
-        got, got_last = Z.backtrack(nodes32, b, len(lane))
+        got, got_last = Z.backtrack(m32["nodes"], b, len(lane))
         check((cmd_tuples(got), got_last) == (want_b, last_b),
               f"zopfli lane {b} of {ZOPFLI_LANES} x {ZOPFLI_LANE} B != host")
-    ms32 = device_ms(lambda: Z._launch(zb32))
-    bound32 = zopfli_bound(zb32, nodes32)
-    print(f"[zopfli times] {card_str}: kernel {ms32:.4f} ms at "
-          f"{ZOPFLI_LANES} x {ZOPFLI_LANE} B (every lane's backtrack == host "
-          f"q10), bound {bound32[0]:.6f} ms ({bound32[1]}); host q10 parse "
-          f"{sum(host32):.3f} s for the {ZOPFLI_LANES} lanes one after "
-          f"another ({min(host32):.3f}-{max(host32):.3f} s a lane)")
-    return {"launches": launches, "err": max(err, err_main), "ms": ms,
-            "plain_ms": plain, "plain_small_ms": plain_small,
-            "bound": bound, "small_ms": small_ms, "ms32": ms32,
-            "bound32": bound32, "host_s": min(host_runs),
-            "host32_s": sum(host32)}
+    print(f"[zopfli main] {card_str}: every lane's backtrack of "
+          f"{ZOPFLI_LANES} x {ZOPFLI_LANE} B == host q10; host q10 parse "
+          f"{sum(host32):.3f} s for the lanes one after another "
+          f"({min(host32):.3f}-{max(host32):.3f} s a lane)")
+    mr = zopfli_pair(Z.stage_zopfli([runs], device="cuda"),
+                     f"the runs input, 1 x {len(runs)} B", card_str)
+    return {"launches": launches, "err": max(err, err_main), "ms": m["ms"],
+            "direct_ms": m["direct_ms"], "plain_ms": plain,
+            "plain_small_ms": plain_small, "bound": m["bound"],
+            "small_ms": small_ms, "ms32": m32["ms"],
+            "direct_ms32": m32["direct_ms"], "bound32": m32["bound"],
+            "ms_runs": mr["ms"], "direct_ms_runs": mr["direct_ms"],
+            "host_s": min(host_runs), "host32_s": sum(host32)}
 
 
 def phase_entry() -> None:
@@ -2186,9 +2235,12 @@ def main() -> int:
                "brotli_tpu/ops/device_zopfli.py:166", zopfli["launches"],
                zopfli["err"], zopfli["ms"], zopfli["plain_ms"],
                zopfli["bound"]),
-         "ms_2x2k": zopfli["small_ms"],
+         "direct_ms": zopfli["direct_ms"], "ms_2x2k": zopfli["small_ms"],
          "plain_ms_2x2k": zopfli["plain_small_ms"], "ms_32x8k": zopfli["ms32"],
+         "direct_ms_32x8k": zopfli["direct_ms32"],
          "bound_ms_32x8k": zopfli["bound32"][0],
+         "ms_runs": zopfli["ms_runs"],
+         "direct_ms_runs": zopfli["direct_ms_runs"],
          "host_ms": zopfli["host_s"] * 1e3,
          "host_ms_32x8k": zopfli["host32_s"] * 1e3},
     ]
