@@ -88,15 +88,15 @@ def _nvcc() -> str:
 
 
 def _build(name: str, compiler: list[str], link: list[str],
-           sources: list[Path]) -> Path:
+           sources: list[Path], deps: list[Path] = ()) -> Path:
     """Compile `sources` into BUILD_DIR/lib<name>.so unless a library built
-    from the same sources, headers and commands is already there.  Each
-    source compiles to an object in its own process, all started together,
-    and `link` joins the objects."""
+    from the same sources, headers (csrc/*.cuh and `deps`) and commands is
+    already there.  Each source compiles to an object in its own process,
+    all started together, and `link` joins the objects."""
     out = BUILD_DIR / f"lib{name}.so"
     stamp = BUILD_DIR / f".{name}.hash"
     h = hashlib.sha256(" ".join(compiler + link).encode())
-    for src in sorted(CSRC.glob("*.cuh")) + sources:
+    for src in sorted(CSRC.glob("*.cuh")) + list(deps) + sources:
         h.update(src.name.encode())
         h.update(" ".join(SOURCE_FLAGS.get(src.name, [])).encode())
         h.update(src.read_bytes())

@@ -1,9 +1,11 @@
 """v3 full-format decode.  Counterpart of brotli_tpu/ops/pallas_decode3.py.
 
-The host half is the port's copy of the reference's (ops/preflight3.py):
-`preflight_v3` / `assemble_v3` parse each stream's metablock header and
-tables and bin the streams by table signature into groups of 1024 lanes
-(`V3Batch`, numpy), exactly as for the JAX kernel.  `batch_to_torch_v3`
+The host half: ops/preflight3_native.py parses each stream's metablock
+header and tables in C++ (native/preflight3.cpp) and bins the streams by
+their tables into groups of 1024 lanes (`V3Batch`, numpy).  The port's copy
+of the reference's Python preflight (ops/preflight3.py: `preflight_v3`,
+`assemble_v3`) stays as its yardstick; its key also holds each stream's
+initial block lengths, so it can make more groups.  `batch_to_torch_v3`
 turns that staging into the port's tensors and `decode3` runs one kernel
 (csrc/decode3.cu `decode3_kernel`) that decodes every lane's metablock,
 entropy and LZ together, through a window in shared memory into the
@@ -33,12 +35,6 @@ import numpy as np
 import torch
 
 from ..decode import decode as host_decode
-from ..decode.bitreader import BitReader, BrotliError
-from ..decode.engine import (
-    _MetablockState,
-    _decode_window_bits,
-    _read_metablock_length,
-)
 from ..device import resolve_device
 from .decode2 import _note_fallbacks, _wrap32, lanes_per_warp, sm_count
 from .preflight3 import (
@@ -63,17 +59,19 @@ from .preflight3 import (
     TAIL,
     V3Batch,
     _build_consts,
-    _caps_full_ok,
     _compound_flat,
     _context_lut_chunks,
     _dcmch,
     _dict_chunks,
-    _EntryV3,
     _lcmch,
-    _sig_of,
     _transform_tables,
-    assemble_v3,
-    preflight_v3,
+)
+from .preflight3_native import (
+    V3Units,
+    preflight_units_v3_native,
+    preflight_v3_native,
+    stage_streams,
+    walk_units,
 )
 
 # Launches of the CUDA kernels, counted by the wrappers where they launch:
@@ -977,7 +975,7 @@ def decode_batch_v3(streams: list[bytes], *,
     dev = resolve_device(device)
     if dict_dev is not None:
         _check_dict_dev(dict_dev, dev)
-    batch = preflight_v3(streams, max_groups=max_groups)
+    batch = preflight_v3_native(streams, max_groups=max_groups)
     if batch is None:
         _note_fallbacks(len(streams), len(streams))
         return [host_decode(s, custom_dictionary=custom_dictionary)
@@ -1013,8 +1011,10 @@ def decode_batch_v3_full(streams: list[bytes], *,
     skipped and uncompressed blocks copied on the host, while each
     compressed metablock becomes a unit of device work carrying its
     continuation (all earlier output as the history prefix, the distance
-    ring, the last two bytes).  Units across streams are binned by table
-    signature and decoded in rounds, one kernel launch a round; the status
+    ring, the last two bytes).  Units across streams are binned by their
+    tables and decoded in rounds, one kernel launch a round; the walk and
+    the parse of every unit's tables are one C++ call each a round
+    (ops/preflight3_native.py: walk_units, preflight_units_v3_native).  The status
     rows give the exact end bit (32*widx - avail) from which the host reads
     the next header.  Streams beyond the _FULL_* caps, or lanes that flag,
     are decoded on the host and counted in fallback_stats().  `dict_dev`
@@ -1023,104 +1023,78 @@ def decode_batch_v3_full(streams: list[bytes], *,
     if dict_dev is not None:
         _check_dict_dev(dict_dev, dev)
     n = len(streams)
+    staged = stage_streams(streams)
     outs: list[bytearray] = [bytearray() for _ in range(n)]
-    bitpos = [0] * n
+    bitpos = np.zeros(n, np.int64)   # 0: the stream's first bit
     rings: list[tuple] = [(4, 11, 15, 16)] * n
-    maxbw = [0] * n
-    live = [True] * n
-    failed = [False] * n
-    words_l: list = [None] * n
-
-    for i, sdat in enumerate(streams):
-        try:
-            br = BitReader(bytes(sdat))
-            wbits, _ = _decode_window_bits(br, large_window_enabled=False)
-            maxbw[i] = (1 << wbits) - 16
-            bitpos[i] = br.bitpos
-            pad = (-len(sdat)) % 4 + 12
-            words_l[i] = np.frombuffer(bytes(sdat) + b"\x00" * pad, "<u4")
-        except BrotliError:
-            failed[i] = True
-            live[i] = False
+    maxbw = np.zeros(n, np.int64)
+    live = np.ones(n, bool)
+    failed = np.zeros(n, bool)
 
     while True:
-        entries: list[_EntryV3] = []
-        is_last: dict[int, bool] = {}
-        for i, sdat in enumerate(streams):
-            if not live[i]:
-                continue
-            br = BitReader(bytes(sdat))
-            br.bitpos = bitpos[i]
-            try:
-                while True:
-                    br.check_health()
-                    input_end = bool(br.read(1))
-                    if input_end and br.read(1):
-                        live[i] = False
-                        break
-                    mbl, is_unc, is_meta = _read_metablock_length(
-                        br, input_end)
-                    if is_meta or mbl == 0 or is_unc:
-                        if is_meta:
-                            br.jump_to_byte_boundary()
-                            br.copy_bytes(mbl)
-                        elif is_unc:
-                            br.jump_to_byte_boundary()
-                            outs[i] += br.copy_bytes(mbl)
-                        if input_end:
-                            live[i] = False
-                            break
-                        continue
-                    st = _MetablockState(br, large_window=False)
-                    if not _caps_full_ok(st):
-                        raise BrotliError(-99, "beyond device caps")
-                    h = bytes(outs[i])
-                    entries.append(_EntryV3(
-                        idx=i, st=st, words=words_l[i], bitpos=br.bitpos,
-                        mlen=mbl, maxbw=maxbw[i], sig=_sig_of(st),
-                        pos0=len(h), p1=h[-1] if h else 0,
-                        p2=h[-2] if len(h) >= 2 else 0, rings=rings[i],
-                        hist=h,
-                    ))
-                    is_last[i] = input_end
-                    break
-            except BrotliError:
+        # the header walk (native): each live stream to its next compressed
+        # metablock, the bytes of uncompressed ones copied on the way
+        todo = np.flatnonzero(live)
+        if not todo.size:
+            break
+        walked = walk_units(staged, todo, bitpos[todo])
+        wu = walked.units
+        first = bitpos[todo] == 0
+        maxbw[todo[first]] = wu[first, 3]
+        for k in np.flatnonzero(wu[:, 5]):
+            outs[todo[k]] += walked.copy_of(k)
+        failed[todo[wu[:, 0] < 0]] = True
+        live[todo[wu[:, 0] != 1]] = False
+        found = wu[:, 0] == 1
+        if not found.any():
+            break
+        unit_i = todo[found].tolist()
+        unit_bit, unit_mlen = wu[found, 2], wu[found, 1]
+        is_last = dict(zip(unit_i, wu[found, 4].astype(bool).tolist()))
+
+        idx = np.asarray(unit_i, np.int64)
+        hists = [bytes(outs[i]) for i in unit_i]
+        extras = np.array(
+            [(len(h), h[-1] if h else 0, h[-2] if len(h) >= 2 else 0,
+              *rings[i]) for i, h in zip(unit_i, hists)], np.int64).T
+        batch = preflight_units_v3_native(V3Units(
+            streams=staged, stream=idx, bit=unit_bit, mlen=unit_mlen,
+            maxbw=maxbw[idx], extras=extras, hist=hists),
+            max_groups=max_groups)
+        placed = set() if batch is None else set(
+            batch.perm[batch.perm >= 0].tolist())
+        # units the parse refused (a malformed table, beyond the _FULL_*
+        # caps), or all of them when over the group budget
+        for i in unit_i:
+            if i not in placed:
                 failed[i] = True
                 live[i] = False
-        if not entries:
-            break
-
-        batch = assemble_v3(entries, max_groups=max_groups)
         if batch is None:
-            for e in entries:
-                failed[e.idx] = True
-                live[e.idx] = False
             break
         out, status = run_batch_v3(batch, dev, use_dict, custom_dictionary,
                                    dict_dev)
         st, raw = _lanes(batch, out, status)
-        by_idx = {e.idx: e for e in entries}
         for slot in range(batch.groups * NSTREAM):
             i = int(batch.perm[slot])
             if i < 0:
                 continue
-            e = by_idx[i]
             if st[0, slot] != 0:
                 failed[i] = True
                 live[i] = False
                 continue
-            outs[i] += raw[slot, : e.mlen].tobytes()
+            outs[i] += raw[slot, : batch.mlens[slot]].tobytes()
             rings[i] = tuple(int(st[6 + k, slot]) for k in range(4))
-            if is_last.get(i, False):
+            if is_last[i]:
                 live[i] = False
             else:
-                bitpos[i] = (32 * (e.bitpos >> 5) + 32 * int(st[4, slot])
-                             - int(st[5, slot]))
+                # the slot's words start at the word of its first command
+                w0 = int(staged.n_words[i]) - int(batch.n_words[slot])
+                bitpos[i] = 32 * w0 + 32 * int(st[4, slot]) - int(st[5, slot])
 
     results = [
         host_decode(streams[i], custom_dictionary=custom_dictionary)
         if failed[i] else bytes(outs[i])
         for i in range(n)
     ]
-    _note_fallbacks(n, sum(failed))
+    _note_fallbacks(n, int(failed.sum()))
     return results

@@ -272,6 +272,7 @@ def v3_cell(uniform: bool = False):
     lanes of a 4-lane warp are one stream's."""
     from .. import encode_device_batch
     from ..ops import decode3 as D3
+    from ..ops.preflight3 import preflight_v3
 
     piece = 1024 * V3_BENCH["chunk_size"]
     data = _corpus(6 * piece)
@@ -281,7 +282,7 @@ def v3_cell(uniform: bool = False):
                                        device="cuda", **V3_BENCH)
     if uniform:
         streams = [s for s in streams[:1536] for _ in range(4)]
-    batch = D3.preflight_v3(streams, max_groups=6)
+    batch = preflight_v3(streams, max_groups=6)
     return D3.batch_to_torch_v3(batch, "cuda")
 
 

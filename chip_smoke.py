@@ -68,36 +68,51 @@ Phases, in order; any failure raises and the exit code is non-zero:
    (lit_ctx_trees=8), decoded by decode_batch_v3(device="cuda",
    max_groups=6, dict_dev=stage_dictionary("cuda")): equal to the input,
    no fallback, the decode3 kernel launched on the staged dictionary;
-   host clock of the call with the preflight apart;
+   host clock of the call split into the native preflight, the staging,
+   the kernel, the copies back and the per-lane copies; then the native
+   preflight (best of 3) and the Python one (once) on the same streams,
+   their V3Batches equal field for field;
 13. v3 times with CUDA events on the staged main batch: the kernel at
    use_dict=False (the bench's timed setting; in turns with the direct
    kernel) and True, the output allocation and fill alone, and the plain
    version once, equal to both kernels;
-14. v3 full -- decode_batch_v3_full(device="cuda") on 1024 lanes of three
+14. v3 block types -- 1024 x 4 KB encoded on the card with block
+   switching (lit_ctx_trees=4, block_types=3, block_seg=512), each stream
+   with initial block lengths of its own, through decode_batch_v3(device=
+   "cuda") at the port's cap: the groups of the Python preflight's binning
+   (over the cap) and of the native one, bit-exact output, 0 fallback
+   lanes, one decode3 launch counted from 0, the call's host clock (the
+   native preflight apart) against the host decoder's;
+15. v3 full -- decode_batch_v3_full(device="cuda") on 1024 lanes of three
    64 KB streams (a streaming Encoder(quality=5, lgwin=18) fed 1 KB updates
    in 16 KB metablocks, a spliced parallel_encode stream, an uncompressed
    one):
    equal to the input, no fallback, one kernel launch per round, the
-   direct kernel never; then each round's batch through both kernels,
-   equal, timed in turns;
-15. caps -- the group-cap sweep at 12, 16, 24 and 32 groups: v2, the
+   direct kernel never; the call's host clock with the native header
+   walk's and preflight's shares, against the host decoder's; each
+   round's groups beside the
+   Python preflight's binning of the same units; then each round's batch
+   through both kernels, equal, timed in turns;
+16. caps -- the group-cap sweep at 12, 16, 24 and 32 groups: v2, the
    main-path streams G times, both v2 kernels (resolve in turns with its
    direct form); v3, the staged v3 cell
    tiled to G groups, decode3; kernel times, MB/s, peak device memory,
    bytes equal to the input on the card and no flagged lane;
    then sparse batches the caps put on the card, 32 streams whose tables
-   all differ (32 groups of one live lane each: v2 8 KB, v3 32 KB, v3 full
-   64 KB in four metablocks), through the drivers at the port's caps:
-   equal to the input, no fallback, the call's host clock, peak device
-   memory and kernel times (the v2 resolve in turns with its direct
-   form), against the host decoder on the same streams;
-16. probes -- run_probe_v2 at every level and run_probe_v2b at every
+   all differ (32 groups of one live lane each, under the native binning
+   and the Python preflight's: v2 8 KB, v3 32 KB with block switching and
+   a table group a stream, v3 full 64 KB in four metablocks), through the
+   drivers at the port's caps: equal to the input, no fallback, the
+   groups, the call's host clock (with the native preflight's share),
+   peak device memory and kernel times (the v2 resolve in turns with its
+   direct form), against the host decoder on the same streams;
+17. probes -- run_probe_v2 at every level and run_probe_v2b at every
    variant of the TPU scripts, launches counted from 0; each kernel's
    outputs held against its plain version bit for bit; ns per row;
-17. profile -- profile_e2e_decode on the main-path batch: per-phase times
+18. profile -- profile_e2e_decode on the main-path batch: per-phase times
    and the device's busy share from torch.profiler (Chrome trace in
    brotli_tpu_torch/build/trace/);
-18. multi v2 -- the v2 cell's 4 groups through decode_batches_multichip
+19. multi v2 -- the v2 cell's 4 groups through decode_batches_multichip
    over 4 logical slots (4 CUDA streams on one card): bit-exact, 0
    fallback lanes, 4 entropy and 4 resolve launches; the wall against the
    same groups through one slot (best of 3 each, in turns); one profiled
@@ -105,21 +120,21 @@ Phases, in order; any failure raises and the exit code is non-zero:
    streams ran at once (Chrome trace in brotli_tpu_torch/build/trace/
    multi_v2/), and the same overlap from CUDA events around the kernels'
    wrappers on each slot's stream;
-19. multi enc -- 4 x 1024 x 32 KB (128 MiB) through
+20. multi enc -- 4 x 1024 x 32 KB (128 MiB) through
    encode_batches_multichip over 4 slots: each piece byte-identical to
    encode_device_batch of it, decoded back through
    decode_batches_multichip with 0 fallback lanes, 4 launches of each of
    parse, pack, entropy, resolve;
-20. multi v3 -- the v3 cell's first 2,048 streams through
+21. multi v3 -- the v3 cell's first 2,048 streams through
    decode_batch_v3_multichip over 4 slots in groups of 512, the dictionary
    staged once: bit-exact, 0 fallback lanes, 4 decode3 launches;
-21. multihost -- brotli_tpu_torch.tools.multihost_sim on the card: 2
+22. multihost -- brotli_tpu_torch.tools.multihost_sim on the card: 2
    processes x 2 slots over gloo, 4 x 1024 x 8 KB encoded on the card and
    decoded back; every process's lists equal the input and the
    single-process encode;
-22. dryrun -- entry.dryrun_multichip(4) on the card;
-23. entry() -- the port's entry point called once and synchronised;
-24. zopfli -- the q10 Zopfli DP's window kernel (csrc/zopfli.cu
+23. dryrun -- entry.dryrun_multichip(4) on the card;
+24. entry() -- the port's entry point called once and synchronised;
+25. zopfli -- the q10 Zopfli DP's window kernel (csrc/zopfli.cu
    zopfli_kernel, built with -fmad=false) == its direct kernel
    (zopfli_direct_kernel) == zopfli_dp_ref on CUDA tensors, every node
    array, result and count bit for bit, 2 lanes x 2 KB;
@@ -135,9 +150,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
    window, shared memory); the host parse's times on the same inputs
    (host clock, the 64 KB three times).
 
-Each of phases 18-22 sets the launch counters to 0 just before it and
+Each of phases 19-23 sets the launch counters to 0 just before it and
 reads them just after; the kernel line gives them as `multi_launches`.
-Phase 24 sets the DP kernels' counters to 0 just before each main-path
+Phase 25 sets the DP kernels' counters to 0 just before each main-path
 call of zopfli_commands_device and reads them just after.
 
 Kernel times come from utils.benchmarks.time_device_fn (CUDA events) and
@@ -157,10 +172,14 @@ before and after its phases.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -287,6 +306,85 @@ def max_abs_err(a, b) -> int:
             err = max(err, int((x.to(torch.int64) - y.to(torch.int64))
                                .abs().max().item()))
     return err
+
+
+@contextlib.contextmanager
+def spied(mod, *names):
+    """mod.<name> for each of `names` wrapped: each call's host clock,
+    through a synchronise before and after, adds to s[name], and its first
+    argument and result go to calls[name]."""
+    s = {n: 0.0 for n in names}
+    calls = {n: [] for n in names}
+    orig = {n: getattr(mod, n) for n in names}
+
+    def wrap(n):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = orig[n](*a, **k)
+            torch.cuda.synchronize()
+            s[n] += time.perf_counter() - t
+            calls[n].append((a[0] if a else None, out))
+            return out
+        return run
+
+    for n in names:
+        setattr(mod, n, wrap(n))
+    try:
+        yield s, calls
+    finally:
+        for n in names:
+            setattr(mod, n, orig[n])
+
+
+def batch_diff(a, b) -> list[str]:
+    """The fields in which two V3Batches differ (arrays: dtype, shape and
+    every value)."""
+    diff = []
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if isinstance(x, np.ndarray):
+            same = (isinstance(y, np.ndarray) and x.dtype == y.dtype
+                    and x.shape == y.shape and bool((x == y).all()))
+        else:
+            same = x == y
+        if not same:
+            diff.append(f.name)
+    return diff
+
+
+def python_groups(streams: list[bytes]) -> int:
+    """The groups that the Python preflight's binning (ops/preflight3.py:
+    _sig_of and maxbw, as assemble_v3) makes of single-metablock streams,
+    whatever the cap."""
+    from brotli_tpu_torch.ops.preflight3 import NSTREAM, preflight_one_v3
+
+    keys = Counter()
+    for x in streams:
+        pre = preflight_one_v3(x)
+        check(pre is not None, "preflight_one_v3 refused a stream")
+        keys[pre.sig + pre.maxbw.to_bytes(4, "little")] += 1
+    return sum(-(-c // NSTREAM) for c in keys.values())
+
+
+def python_groups_units(units) -> int:
+    """The same for one round of decode_batch_v3_full (a V3Units): each
+    unit's _MetablockState read at its bit, binned by _sig_of and maxbw
+    (each distinct stream and bit read once)."""
+    from brotli_tpu_torch.decode.bitreader import BitReader
+    from brotli_tpu_torch.decode.engine import _MetablockState
+    from brotli_tpu_torch.ops.preflight3 import NSTREAM, _sig_of
+
+    st, sigs, keys = units.streams, {}, Counter()
+    for s_i, bit, maxbw in zip(units.stream, units.bit, units.maxbw):
+        off, n = int(st.offsets[s_i]), int(st.lens[s_i])
+        at = (st.buf[off: off + n].tobytes(), int(bit))
+        if at not in sigs:
+            br = BitReader(at[0])
+            br.bitpos = at[1]
+            sigs[at] = _sig_of(_MetablockState(br, large_window=False))
+        keys[sigs[at] + int(maxbw).to_bytes(4, "little")] += 1
+    return sum(-(-c // NSTREAM) for c in keys.values())
 
 
 def ptxas_report(log: str) -> dict:
@@ -1028,8 +1126,8 @@ def v3_kernel_vs_plain(tag: str, streams: list[bytes], expect: list,
     must flag and the others decode to `expect`."""
     from brotli_tpu_torch.ops import decode3 as D3
 
-    batch = D3.preflight_v3(streams, max_groups=8)
-    check(batch is not None, f"{tag}: preflight_v3 refused the batch")
+    batch = D3.preflight_v3_native(streams, max_groups=8)
+    check(batch is not None, f"{tag}: preflight_v3_native refused the batch")
     tb = D3.batch_to_torch_v3(batch, "cuda", custom_dictionary)
     n0 = D3.KERNEL_LAUNCHES
     ker = D3.decode3(tb)
@@ -1111,8 +1209,9 @@ def phase_v3_kernel_vs_plain(card_str: str) -> int:
             enc(texts[2], quality=9), enc(texts[3], quality=11)]
     worst = max(worst, v3_kernel_vs_plain(
         "host q9/q11 encodes (tree groups, block switching)", host, texts))
-    batch = D3.preflight_v3(host * 256, max_groups=8)
-    check(batch is not None, "preflight_v3 refused the host q9/q11 lanes")
+    batch = D3.preflight_v3_native(host * 256, max_groups=8)
+    check(batch is not None, "preflight_v3_native refused the host q9/q11 "
+          "lanes")
     tb = D3.batch_to_torch_v3(batch, "cuda")
     out, status = D3.decode3(tb)
     out = out.cpu().numpy()
@@ -1169,28 +1268,21 @@ def v3_main_streams(card_str: str) -> tuple[bytes, list[bytes]]:
 def phase_v3_main(data: bytes, streams: list[bytes], card_str: str):
     """decode_batch_v3 on the main shape with the static dictionary staged
     once beforehand (dict_dev), the decode3 launches counted from 0, the
-    host preflight timed inside the call, and the kernel seen to read the
-    staged dictionary tensor itself (no upload in the call)."""
+    kernel seen to read the staged dictionary tensor itself (no upload in
+    the call), and the call's host clock split: the native preflight, the
+    staging (batch_to_torch_v3), the kernel, the copies back (_lanes) and
+    the rest (the per-lane copies of the bytes).  Then the native preflight
+    (best of 3) and the Python one (once) on the same streams: the two
+    V3Batches must be equal field for field."""
     import brotli_tpu_torch
     from brotli_tpu_torch.ops import decode3 as D3
+    from brotli_tpu_torch.ops.preflight3 import preflight_v3
+    from brotli_tpu_torch.ops.preflight3_native import N_THREADS
 
-    seen = {"dicts": []}
-    preflight, decode3 = D3.preflight_v3, D3.decode3
-
-    def timed_preflight(*a, **k):
-        t = time.perf_counter()
-        seen["batch"] = preflight(*a, **k)
-        seen["pre_s"] = time.perf_counter() - t
-        return seen["batch"]
-
-    def seen_decode3(tb, *a):
-        seen["dicts"].append(tb.dict)
-        return decode3(tb, *a)
-
+    parts = ("preflight_v3_native", "batch_to_torch_v3", "decode3", "_lanes")
     dict_dev = brotli_tpu_torch.stage_dictionary("cuda")
     fb0 = brotli_tpu_torch.fallback_stats()["lanes_fallback"]
-    D3.preflight_v3, D3.decode3 = timed_preflight, seen_decode3
-    try:
+    with spied(D3, *parts) as (split, calls):
         D3.KERNEL_LAUNCHES = 0
         D3.DIRECT_LAUNCHES = 0
         t0 = time.perf_counter()
@@ -1200,24 +1292,101 @@ def phase_v3_main(data: bytes, streams: list[bytes], card_str: str):
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         launches = D3.KERNEL_LAUNCHES
-    finally:
-        D3.preflight_v3, D3.decode3 = preflight, decode3
+    batch = calls["preflight_v3_native"][0][1]
+    dicts = [tb.dict for tb, _ in calls["decode3"]]
+    del calls
     fell = brotli_tpu_torch.fallback_stats()["lanes_fallback"] - fb0
     check(b"".join(got) == data, "v3 main output differs from the input")
     check(fell == 0, f"{fell} v3 main lanes fell back to the host decoder")
     check(launches >= 1, "decode3 never launched on the v3 main path")
     check(D3.DIRECT_LAUNCHES == 0, "the v3 main path launched the direct "
           "kernel")
-    check(seen["batch"].groups == V3_GROUPS, "v3 main batch is not 6 groups")
-    check(len(seen["dicts"]) == launches
-          and all(d is dict_dev for d in seen["dicts"]),
+    check(batch.groups == V3_GROUPS, "v3 main batch is not 6 groups")
+    check(len(dicts) == launches and all(d is dict_dev for d in dicts),
           "decode_batch_v3 did not decode from the staged dictionary")
+    rest = dt - sum(split.values())
     print(f"[v3 main] {card_str}: {len(data)} B decoded bit-exact through "
           f"decode_batch_v3(device='cuda', dict_dev=stage_dictionary('cuda')), "
           f"0 fallback lanes, decode3 launches {launches}, each on the "
           f"staged dictionary tensor; whole call {dt:.3f} s (host clock), of "
-          f"which host preflight {seen['pre_s']:.3f} s")
-    return launches, seen["batch"]
+          f"which native preflight {split['preflight_v3_native']:.3f} s, "
+          f"staging (batch_to_torch_v3) {split['batch_to_torch_v3']:.3f} s, "
+          f"kernel {split['decode3']:.3f} s, copies back (_lanes) "
+          f"{split['_lanes']:.3f} s, the rest (per-lane copies) {rest:.3f} s "
+          "(each through a synchronise)")
+    nat = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        again = D3.preflight_v3_native(streams, max_groups=V3_GROUPS)
+        nat.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    ref = preflight_v3(streams, max_groups=V3_GROUPS)
+    py_s = time.perf_counter() - t0
+    diff = batch_diff(again, ref)
+    check(not diff, f"[v3 main] the native and the Python preflight differ "
+          f"in {diff}")
+    print(f"[v3 main] {card_str}, os.cpu_count() {os.cpu_count()}: host "
+          f"preflight of the {len(streams)} streams: preflight_v3_native "
+          f"{min(nat):.4f} s (best of 3: {', '.join(f'{x:.4f}' for x in nat)}; "
+          f"{N_THREADS} threads), preflight_v3 (Python) {py_s:.3f} s (once), "
+          f"{py_s / min(nat):.1f}x; the two V3Batches equal field for field "
+          f"({again.groups} groups)")
+    return launches, batch
+
+
+def phase_v3_block_types(card_str: str) -> int:
+    """1024 x 4 KB streams encoded on the card with block switching (the
+    "block types" knobs of ENC_PLAIN_SETS), each with initial block
+    lengths of its own, through decode_batch_v3(device="cuda") at the
+    port's cap: the Python preflight's groups (one key a stream, over the
+    cap) against the native preflight's, the output bit-exact with no
+    fallback lane, and the call's host clock against the host decoder's."""
+    import brotli_tpu_torch
+    from brotli_tpu_torch.ops import decode3 as D3
+
+    knobs = ENC_PLAIN_SETS["block types"]
+    data = corpus(1024 * 4096)
+    enc0 = brotli_tpu_torch.encode_fallback_stats()["lanes_fallback"]
+    streams = brotli_tpu_torch.encode_device_batch(
+        data, device="cuda", chunk_size=4096, **knobs)
+    torch.cuda.synchronize()
+    check(brotli_tpu_torch.encode_fallback_stats()["lanes_fallback"] == enc0,
+          "[v3 block types] lanes overflowed (host-encoded)")
+    want = [data[i: i + 4096] for i in range(0, len(data), 4096)]
+    t0 = time.perf_counter()
+    old = python_groups(streams)
+    old_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = [brotli_tpu_torch.host_decode(x) for x in streams]
+    host_s = time.perf_counter() - t0
+    check(host == want, "[v3 block types] the host decoder differs")
+    fb0 = brotli_tpu_torch.fallback_stats()["lanes_fallback"]
+    with spied(D3, "preflight_v3_native") as (split, calls):
+        D3.KERNEL_LAUNCHES = 0
+        D3.DIRECT_LAUNCHES = 0
+        t0 = time.perf_counter()
+        got = brotli_tpu_torch.decode_batch_v3(streams, device="cuda")
+        torch.cuda.synchronize()
+        dev_s = time.perf_counter() - t0
+        launches = D3.KERNEL_LAUNCHES
+    batch = calls["preflight_v3_native"][0][1]
+    fell = brotli_tpu_torch.fallback_stats()["lanes_fallback"] - fb0
+    check(batch is not None, "[v3 block types] the native preflight "
+          "refused the batch")
+    check(got == want, "[v3 block types] output differs from the input")
+    check(fell == 0, f"[v3 block types] {fell} lanes fell back")
+    check(launches == 1 and D3.DIRECT_LAUNCHES == 0,
+          f"[v3 block types] decode3 launches {launches}")
+    check(batch.groups < old, "[v3 block types] no fewer groups")
+    print(f"[v3 block types] {card_str}: {len(streams)} x 4096 B encoded on "
+          f"the card ({knobs}): Python preflight's binning {old} groups "
+          f"(over the cap of {D3.GROUP_CAP_V3}; counted in {old_s:.3f} s), "
+          f"native {batch.groups}; decoded bit-exact through "
+          f"decode_batch_v3(device='cuda') in {dev_s:.3f} s (host clock, of "
+          f"which native preflight {split['preflight_v3_native']:.4f} s), 0 "
+          f"fallback lanes, decode3 launches {launches}; host decoder on the "
+          f"same streams {host_s:.3f} s")
+    return launches
 
 
 def phase_v3_times(batch, card_str: str) -> dict:
@@ -1276,16 +1445,13 @@ def phase_v3_full(card_str: str) -> int:
         check(brotli_tpu_torch.host_decode(s) == text, "a v3 full stream "
               "does not host-decode")
     lanes = [streaming] * 342 + [spliced] * 341 + [unc] * 341
-    rounds = []
-    run = D3.run_batch_v3
-
-    def counted(*a, **k):
-        rounds.append(a[0])
-        return run(*a, **k)
-
+    t0 = time.perf_counter()
+    host = [brotli_tpu_torch.host_decode(x) for x in lanes]
+    host_s = time.perf_counter() - t0
+    check(all(h == text for h in host), "v3 full: the host decoder differs")
     fb0 = brotli_tpu_torch.fallback_stats()["lanes_fallback"]
-    D3.run_batch_v3 = counted
-    try:
+    parts = ("run_batch_v3", "preflight_units_v3_native", "walk_units")
+    with spied(D3, *parts) as (s, calls):
         D3.KERNEL_LAUNCHES = 0
         D3.DIRECT_LAUNCHES = 0
         t0 = time.perf_counter()
@@ -1293,19 +1459,30 @@ def phase_v3_full(card_str: str) -> int:
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         launches = D3.KERNEL_LAUNCHES
-    finally:
-        D3.run_batch_v3 = run
+    rounds = [batch for batch, _ in calls["run_batch_v3"]]
+    units = [u for u, _ in calls["preflight_units_v3_native"]]
+    del calls
     fell = brotli_tpu_torch.fallback_stats()["lanes_fallback"] - fb0
     check(all(g == text for g in got), "v3 full output differs from the input")
     check(fell == 0, f"{fell} v3 full lanes fell back to the host decoder")
-    check(launches == len(rounds) >= 2,
+    check(launches == len(rounds) == len(units) >= 2,
           f"{launches} decode3 launches for {len(rounds)} rounds")
     check(D3.DIRECT_LAUNCHES == 0, "decode_batch_v3_full launched the "
           "direct kernel")
+    groups = [b.groups for b in rounds]
+    py_groups = [python_groups_units(u) for u in units]
+    check(all(g <= o for g, o in zip(groups, py_groups)), "v3 full: more "
+          "groups than the Python preflight's binning")
     print(f"[v3 full] {card_str}: 1024 lanes x 64 KB (streaming 16 KB "
           f"metablocks, spliced 16 KB fragments, uncompressed) decoded bit-exact through "
           f"decode_batch_v3_full(device='cuda') in {dt:.3f} s (host clock), "
-          f"0 fallback lanes, {len(rounds)} rounds, {launches} launches")
+          f"of which native header walk {s['walk_units']:.3f} s, native "
+          f"preflight {s['preflight_units_v3_native']:.3f} s "
+          f"and run_batch_v3 (staging, kernel, copies back) "
+          f"{s['run_batch_v3']:.3f} s; host decoder on the same lanes "
+          f"{host_s:.3f} s; 0 fallback lanes, {len(rounds)} rounds, "
+          f"{launches} launches; groups a round {groups} (Python "
+          f"preflight's binning {py_groups})")
     new = old = 0.0
     for k, batch in enumerate(rounds):
         tb = D3.batch_to_torch_v3(batch, "cuda")
@@ -1410,22 +1587,18 @@ SPARSE = 32   # streams of a sparse batch, each with tables of its own
 
 
 def sparse_run(name: str, streams: list[bytes], want: list[bytes], decode,
-               mod, runner: str, kernel_ms, card_str: str) -> None:
-    """One sparse batch: each of its streams a table group of its own, so
-    the staged batch is SPARSE groups of 1024 lanes with one live lane
-    each.  `decode` (a driver at the port's cap) on the card: the host
-    clock of the call, peak device memory, the rounds' groups, and the
-    kernels' time on each staged round (`kernel_ms`); against the host
-    decoder on the same streams, which is what the driver did at the
-    reference's cap.  Output equal to the input, no fallback lane."""
+               mod, runner: str, kernel_ms, card_str: str,
+               old_groups=None) -> None:
+    """One sparse batch through `decode` (a driver at the port's cap) on
+    the card: the host clock of the call (and, on the v3 paths, of its
+    native preflight), peak device memory, the rounds' groups (on the v3
+    paths beside the Python preflight's binning, `old_groups` of each
+    round's preflight input) and the kernels' time on each staged round
+    (`kernel_ms`); against the host decoder on the same streams, which is
+    what the driver did at the reference's cap.  Output equal to the input,
+    no fallback lane."""
     import brotli_tpu_torch
-
-    batches = []
-    run = getattr(mod, runner)
-
-    def seen(*a, **k):
-        batches.append(a[0])
-        return run(*a, **k)
+    from brotli_tpu_torch.ops import decode3 as D3
 
     t0 = time.perf_counter()
     host = [brotli_tpu_torch.host_decode(x) for x in streams]
@@ -1435,27 +1608,33 @@ def sparse_run(name: str, streams: list[bytes], want: list[bytes], decode,
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     fb0 = brotli_tpu_torch.fallback_stats()["lanes_fallback"]
-    setattr(mod, runner, seen)
-    try:
+    pre = ("preflight_v3_native", "preflight_units_v3_native")
+    with spied(mod, runner) as (_, calls), spied(D3, *pre) as (pre_s, pres):
         t0 = time.perf_counter()
         got = decode(streams)
         torch.cuda.synchronize()
         dev_s = time.perf_counter() - t0
-    finally:
-        setattr(mod, runner, run)
     peak = torch.cuda.max_memory_allocated() / 2**30
+    batches = [b for b, _ in calls[runner]]
+    inputs = [x for n in pre for x, _ in pres[n]]
+    del calls, pres
     fell = brotli_tpu_torch.fallback_stats()["lanes_fallback"] - fb0
     check(got == want, f"{name}: output differs from the input")
     check(fell == 0, f"{name}: {fell} lanes fell back to the host decoder")
-    check(all(b.groups == SPARSE for b in batches),
-          f"{name}: rounds of {[b.groups for b in batches]} groups, not "
-          f"{SPARSE}")
+    groups = [b.groups for b in batches]
+    if old_groups is None:
+        old, pre_txt = [SPARSE] * len(batches), ""
+    else:
+        old = [old_groups(x) for x in inputs]
+        pre_txt = f", of which native preflight {sum(pre_s.values()):.4f} s"
+    check(groups == old == [SPARSE] * len(batches), f"{name}: rounds of "
+          f"{groups} groups, the Python binning's {old}, not {SPARSE}")
     ms = [kernel_ms(b) for b in batches]
     print(f"[caps sparse] {card_str}: {name}: {len(streams)} streams, "
-          f"{sum(map(len, want))} B, {len(batches)} round(s) of "
-          f"{SPARSE} groups x 1024 lanes, one live lane a group: "
+          f"{sum(map(len, want))} B, {len(batches)} round(s) of {groups} "
+          f"groups x 1024 lanes (the Python preflight's binning: {old}): "
           f"{dev_s:.3f} s through the driver at the port's cap (host "
-          f"clock), kernels {sum(ms):.4f} ms ({', '.join(f'{m:.4f}' for m in ms)}; "
+          f"clock{pre_txt}), kernels {sum(ms):.4f} ms ({', '.join(f'{m:.4f}' for m in ms)}; "
           f"time_device_fn), peak device memory {peak:.3f} GiB, 0 fallback "
           f"lanes; host decoder on the same streams {host_s:.3f} s")
 
@@ -1464,10 +1643,12 @@ def phase_caps_sparse(data: bytes, card_str: str) -> None:
     """Batches the caps let onto the card that the reference's caps sent
     to the host: SPARSE streams whose tables all differ.  v2, one 8 KB
     encode_sharded stream of its own text each (preflight_binned's bins);
-    v3, 32 KB streams encoded on the card with block switching (one
-    signature a stream); v3 full, 64 KB streams of four 16 KB metablocks
-    by a streaming host Encoder, one text each (one signature a stream in
-    every round, history prefixes up to 48 KB)."""
+    v3, 32 KB streams encoded on the card with block switching, a table
+    group a stream (table_groups=SPARSE: each lane's trees its own); v3
+    full, 64 KB streams of four 16 KB metablocks by a streaming host
+    Encoder, one text each (history prefixes up to 48 KB).  Each makes a
+    group a stream under the native binning and under the Python
+    preflight's."""
     import brotli_tpu_torch
     from brotli_tpu_torch.ops import decode2 as D
     from brotli_tpu_torch.ops import decode3 as D3
@@ -1504,12 +1685,12 @@ def phase_caps_sparse(data: bytes, card_str: str) -> None:
                    s, device="cuda"), D, "run_batch_e2e", v2_ms, card_str)
     text = corpus(SPARSE * ENC_CHUNK)
     v3 = brotli_tpu_torch.encode_device_batch(
-        text, device="cuda", chunk_size=ENC_CHUNK, lit_ctx_trees=4,
-        block_types=3, block_seg=512)
+        text, device="cuda", chunk_size=ENC_CHUNK, table_groups=SPARSE,
+        lit_ctx_trees=4, block_types=3, block_seg=512)
     want = [text[i: i + ENC_CHUNK] for i in range(0, len(text), ENC_CHUNK)]
     sparse_run("v3, 32 KB streams", v3, want,
                lambda s: brotli_tpu_torch.decode_batch_v3(s, device="cuda"),
-               D3, "run_batch_v3", v3_ms, card_str)
+               D3, "run_batch_v3", v3_ms, card_str, python_groups)
     text = corpus(SPARSE * 65536 + 65536)[65536:]
     want, full = [], []
     for i in range(SPARSE):
@@ -1519,7 +1700,8 @@ def phase_caps_sparse(data: bytes, card_str: str) -> None:
         full.append(enc.update(want[-1]) + enc.finish())
     sparse_run("v3 full, 64 KB streams", full, want,
                lambda s: brotli_tpu_torch.decode_batch_v3_full(
-                   s, device="cuda"), D3, "run_batch_v3", v3_ms, card_str)
+                   s, device="cuda"), D3, "run_batch_v3", v3_ms, card_str,
+               python_groups_units)
 
 
 # ---------------------------------------------------------------------------
@@ -2158,6 +2340,7 @@ def main() -> int:
     del v3_data, v3_streams
     v3_times = phase_v3_times(v3_batch, card_str)
     del v3_batch
+    bt_launches = phase_v3_block_types(card_str)
     phase_v3_full(card_str)
     phase_caps(data, streams, v3_times.pop("tb"), v3_rows, card_str)
     del v3_rows
@@ -2223,7 +2406,9 @@ def main() -> int:
                "brotli_tpu/ops/pallas_decode3.py:532", v3_launches,
                max(v3_err, v3_times["err"]), v3_times["ms"],
                v3_times["plain_ms"], v3_times["bound"]),
-         "direct_ms": v3_times["direct_ms"]},
+         "direct_ms": v3_times["direct_ms"],
+         # launches on [v3 block types], counted from 0
+         "block_types_launches": bt_launches},
         row("probe_v2", "probe.cu", "tools/probe_v2.py:15",
             probes["launches"]["probe_v2"], pv2["err"], pv2["ms"],
             pv2["plain_ms"], pv2["bound"]),

@@ -43,16 +43,17 @@ def test_v2_driver_takes_the_port_cap(monkeypatch):
 
 def test_v3_drivers_default_to_the_port_cap(monkeypatch):
     """decode_batch_v3 and decode_batch_v3_full default max_groups to
-    GROUP_CAP_V3 and hand it to preflight_v3 / assemble_v3; an explicit
-    value (the reference's 4) goes through as given."""
+    GROUP_CAP_V3 and hand it to the binning (preflight_v3_native /
+    preflight_units_v3_native); an explicit value (the reference's 4) goes
+    through as given."""
     for name in ("decode_batch_v3", "decode_batch_v3_full"):
         param = inspect.signature(getattr(D3, name)).parameters["max_groups"]
         assert param.default == D3.GROUP_CAP_V3
     seen = []
-    monkeypatch.setattr(D3, "preflight_v3",
+    monkeypatch.setattr(D3, "preflight_v3_native",
                         lambda streams, max_groups: seen.append(max_groups))
-    monkeypatch.setattr(D3, "assemble_v3",
-                        lambda entries, max_groups: seen.append(max_groups))
+    monkeypatch.setattr(D3, "preflight_units_v3_native",
+                        lambda units, max_groups: seen.append(max_groups))
     monkeypatch.setattr(D3, "host_decode",
                         lambda s, custom_dictionary=None: b"")
     stream = brotli_tpu_torch.host_encode(b"hello, hello world " * 20,
