@@ -41,7 +41,8 @@ NVCC_FLAGS = [
 ]
 NVCC_LINK_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-shared"]
 KERNEL_SOURCES = ["decode2.cu", "decode3.cu", "resolve.cu", "pack.cu",
-                  "parse.cu", "probe.cu", "zopfli.cu"]
+                  "parse.cu", "probe.cu", "zopfli.cu", "matches.cu",
+                  "records.cu"]
 # flags of one source only: the Zopfli DP's float64 costs are sums in the
 # host's order, and no multiply-add may contract one
 SOURCE_FLAGS = {"zopfli.cu": ["-fmad=false"]}
@@ -66,6 +67,8 @@ _RESOLVE_ARGS = _RESOLVE_DIRECT_ARGS + [_I]           # + window bytes
 _PACK_ARGS = [_P] * 13 + [_I] * 9
 _PACK_SERIAL_ARGS = [_P] * 12 + [_I] * 9
 _PARSE_ARGS = [_P] * 6 + [_I] * 6
+_MATCHES_ARGS = [_P] * 4 + [_I] * 6
+_RECORDS_ARGS = [_P] * 11 + [_I] * 4
 _ZOPFLI_DIRECT_ARGS = [_P] * 19 + [_I] * 5
 _ZOPFLI_ARGS = [_P] * 20 + [_I] * 6                   # + records; blocks,
                                                       # window
@@ -164,6 +167,9 @@ def kernels_lib() -> ctypes.CDLL:
             "brotli_torch_pack": _PACK_ARGS + [_P],
             "brotli_torch_pack_serial": _PACK_SERIAL_ARGS + [_P],
             "brotli_torch_parse": _PARSE_ARGS + [_P],
+            "brotli_torch_matches": _MATCHES_ARGS + [_P],
+            "brotli_torch_matches_config": [_I, _P],
+            "brotli_torch_records": _RECORDS_ARGS + [_I, _P],  # + SMs
             "brotli_torch_zopfli": _ZOPFLI_ARGS + [_P],
             "brotli_torch_zopfli_direct": _ZOPFLI_DIRECT_ARGS + [_P],
             "brotli_torch_probe_v2": _PROBE_V2_ARGS + [_P],
@@ -191,6 +197,8 @@ def host_lib() -> ctypes.CDLL:
             "brotli_torch_pack_host": _PACK_ARGS,
             "brotli_torch_pack_serial_host": _PACK_SERIAL_ARGS,
             "brotli_torch_parse_host": _PARSE_ARGS,
+            "brotli_torch_matches_host": _MATCHES_ARGS,
+            "brotli_torch_records_host": _RECORDS_ARGS,
             "brotli_torch_zopfli_host": _ZOPFLI_ARGS,
             "brotli_torch_zopfli_direct_host": _ZOPFLI_DIRECT_ARGS,
             "brotli_torch_zopfli_min_len_host": [_P, _I, _I,

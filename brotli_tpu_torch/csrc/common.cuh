@@ -14,6 +14,7 @@
 namespace brotli_torch {
 
 using u8 = uint8_t;
+using u16 = uint16_t;
 using u32 = uint32_t;
 using i32 = int32_t;
 using i64 = int64_t;

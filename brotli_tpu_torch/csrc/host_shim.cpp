@@ -1,19 +1,22 @@
 // Host build of the kernels' per-lane logic (decode2.cuh, decode3.cuh,
-// queue.cuh, resolve.cuh, pack.cuh, parse.cuh, probe.cuh, zopfli.cuh), compiled with
+// queue.cuh, resolve.cuh, pack.cuh, parse.cuh, probe.cuh, zopfli.cuh,
+// matches.cuh, records.cuh), compiled with
 // g++ so the CPU tests can hold the exact code the CUDA kernels run against
 // the plain PyTorch versions.  Test-only: the encode and decode paths never call it.
 // The argument layouts are those of the CUDA entry points in decode2.cu,
-// decode3.cu, resolve.cu, pack.cu, parse.cu, probe.cu and zopfli.cu, without the
-// stream.
+// decode3.cu, resolve.cu, pack.cu, parse.cu, probe.cu, zopfli.cu, matches.cu
+// and records.cu, without the stream.
 #include <algorithm>
 #include <cstdint>
 #include <vector>
 
 #include "decode2.cuh"
 #include "decode3.cuh"
+#include "matches.cuh"
 #include "pack.cuh"
 #include "parse.cuh"
 #include "probe.cuh"
+#include "records.cuh"
 #include "resolve.cuh"
 #include "zopfli.cuh"
 
@@ -640,4 +643,136 @@ extern "C" int brotli_torch_zopfli_direct_host(
 extern "C" int brotli_torch_zopfli_min_len_host(const void* cost, int n,
                                                 int pos, double min_cost) {
   return zopfli_min_copy_len((const double*)cost, n, pos, min_cost);
+}
+
+// The match finder lane by lane: a serial stable sort of each pass's
+// hashed positions by key (the kernel's radix sort in shared memory gives
+// the same order), the same candidates, a backward scan for the byte runs,
+// and the extension rounds in place from the front (position p reads p + s
+// before the round reaches it, so each round reads the last one's values).
+extern "C" int brotli_torch_matches_host(const void* data, const void* n_valid,
+                                         void* mlen, void* mdist, int n_lanes,
+                                         int n, int st, int max_dist,
+                                         int depth, int hash2) {
+  if (!match_args_ok(n_lanes, n, st, max_dist, depth)) return 1;
+  const MatchKnobs K{st, match_pbits(n / st), max_dist, depth, hash2 != 0};
+  const int n2 = n / st;
+  std::vector<u32> key(n2);
+  std::vector<i32> order(n2), d1(n), d7(n), len(n);
+  for (int lane = 0; lane < n_lanes; ++lane) {
+    const u8* row = (const u8*)data + (i64)lane * (n + MATCH_TAIL);
+    auto win = [&](i32 q) {
+      return (u32)row[q] | (u32)row[q + 1] << 8 | (u32)row[q + 2] << 16 |
+             (u32)row[q + 3] << 24;
+    };
+    auto len_at = [&](i32 p, i32 d) {
+      return d ? match_len(win(p), win(p + 4), win(p - d), win(p - d + 4)) : 0;
+    };
+    auto pass = [&](bool h7, int dep, std::vector<i32>& out) {
+      for (int e = 0; e < n2; ++e) {
+        key[e] = match_key(win(e * st), win(e * st + 4), h7, K.pbits);
+        order[e] = e;
+      }
+      std::stable_sort(order.begin(), order.end(),
+                       [&](i32 x, i32 y) { return key[x] < key[y]; });
+      std::fill(out.begin(), out.end(), 0);
+      for (int k = 0; k < n2; ++k) {
+        const i32 p = order[k] * st;
+        i32 sl = 0, sd = 0;
+        for (int j = 1; j <= dep && k - j >= 0; ++j) {
+          if (key[order[k - j]] != key[order[k]]) break;
+          const i32 c = order[k - j] * st;
+          i32 l, d;
+          match_candidate(K, match_len(win(p), win(p + 4), win(c), win(c + 4)),
+                          p - c, l, d);
+          match_take(sl, sd, l, d);
+        }
+        out[p] = sd;
+      }
+    };
+    pass(false, depth, d1);
+    if (K.hash2) {
+      pass(true, 2, d7);
+      for (int p = 0; p < n; ++p) {
+        i32 sd = d1[p], sl = len_at(p, sd);
+        match_take(sl, sd, len_at(p, d7[p]), d7[p]);
+        d1[p] = sd;
+      }
+    }
+    std::vector<i32>& dist = d1;
+    for (int p = 0; p < n; ++p) len[p] = len_at(p, dist[p]);
+    i32 run = 0;
+    for (int p = n - 1; p >= 0; --p) {
+      run = (p >= 4 && row[p] == row[p - 4]) ? run + 1 : 0;
+      match_run(run, len[p], dist[p]);
+    }
+    for (i32 s = MATCH_CAP_BYTES; s < match_ext_limit(n); s *= 2)
+      for (int p = 0; p < n; ++p) {
+        const bool in = p + s < n;
+        len[p] = match_extend(s, len[p], dist[p], in ? len[p + s] : 0,
+                              in ? dist[p + s] : 0);
+      }
+    const i32 nv = ((const i32*)n_valid)[lane];
+    i32* ml = (i32*)mlen + (i64)lane * n;
+    i32* md = (i32*)mdist + (i64)lane * n;
+    for (int p = 0; p < n; ++p) {
+      i32 l = len[p], d = dist[p];
+      match_final(p, nv, l, d);
+      ml[p] = l;
+      md[p] = d;
+    }
+  }
+  return 0;
+}
+
+// The record builder lane by lane: the forward running maximum, the
+// backward suffix minima, and every row from the same functions as the
+// warp of csrc/records.cu.
+extern "C" int brotli_torch_records_host(
+    const void* data, const void* mlen, const void* mdist, const void* is_cs,
+    const void* is_lit, const void* dshort, const void* n_valid,
+    const void* tab, void* rec0, void* rec1, void* n_rec, int n_lanes, int n,
+    int dstride, int lit_ctx) {
+  if (n_lanes <= 0 || n <= 0 || dstride < n) return 1;
+  const i32* T = (const i32*)tab;
+  std::vector<i32> ins(n);
+  std::vector<RecCopy> copy(n);
+  std::vector<RecNext> next(n);
+  for (int lane = 0; lane < n_lanes; ++lane) {
+    const i64 row = (i64)lane * n, orow = (i64)lane * (n + 1);
+    const u8* d = (const u8*)data + (i64)lane * dstride;
+    const u8* cs = (const u8*)is_cs + row;
+    const u8* lit = (const u8*)is_lit + row;
+    const i32* ml = (const i32*)mlen + row;
+    const i32* md = (const i32*)mdist + row;
+    const i32* ds = (const i32*)dshort + row;
+    const i32 nv = ((const i32*)n_valid)[lane];
+    i32 cm = -1;
+    for (int p = 0; p < n; ++p) {
+      ins[p] = cs[p] ? p - std::max(cm, 0) : 0;
+      if (cs[p]) cm = std::max(cm, p + ml[p]);
+    }
+    const RecTail tail = rec_tail(T, nv, cm);
+    RecNext nx{REC_BIG, REC_BIG, REC_BIG};
+    for (int q = n - 1; q >= 0; --q) {
+      copy[q] = rec_copy(T, cs[q], ins[q], ml[q], md[q], ds[q]);
+      nx = rec_next_min(rec_next_of(cs[q], q, copy[q]), nx);
+      next[q] = nx;
+    }
+    i32* r0 = (i32*)rec0 + orow;
+    i32* r1 = (i32*)rec1 + orow;
+    rec_first(next[0], nv, tail, r0[0], r1[0]);
+    for (int p = 0; p < n; ++p) {
+      const bool first = p == 0;
+      rec_row(p >= 2 && cs[p - 2], first ? rec_no_copy() : copy[p - 1],
+              first ? next[0] : next[p - 1], lit[p],
+              rec_lit_code(T, lit_ctx != 0, d[p], p >= 1 ? d[p - 1] : 0,
+                           p >= 2 ? d[p - 2] : 0),
+              tail, r0[p + 1], r1[p + 1]);
+    }
+    i32 count = 0;
+    for (int r = 0; r <= n; ++r) count += r0[r] != 0;
+    ((i32*)n_rec)[lane] = count;
+  }
+  return 0;
 }

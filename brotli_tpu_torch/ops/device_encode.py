@@ -11,12 +11,15 @@ Stages, per batch of B_LANES chunks of up to CHUNK_N bytes:
 1. `find_matches`: hash every 4-byte window, a stable row sort of
    (hash << pbits | pos) carrying the window words, the nearest
    `chain_depth` same-hash neighbours, byte runs and run extension by
-   doubling, clamped to the chunk;
+   doubling, clamped to the chunk: the CUDA kernel csrc/matches.cu on CUDA
+   tensors (`find_matches_ref`, whole-array ops, on CPU tensors);
 2. `greedy_parse`: score gate and lazy look-ahead, then the sequential
    next-free and distance-ring walk (the JAX `lax.scan`): the CUDA kernel
    csrc/parse.cu on CUDA tensors (`greedy_parse_ref`, a Python loop over
    positions vectorised over lanes, on CPU tensors);
-3. `build_records`: symbol records already in stream order;
+3. `build_records`: symbol records already in stream order: the CUDA
+   kernel csrc/records.cu on CUDA tensors (`build_records_ref` on CPU
+   tensors);
 4. `segment_stats` (block_types > 1): k-means and Viterbi block typing;
 5. `group_hist`: a strided record sample binned by one bincount;
 6. host: lane clustering, Huffman tables and headers (numpy,
@@ -34,6 +37,7 @@ is done in int64 and wrapped back.  Lanes whose pack buffer overflowed
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import logging
 from contextlib import contextmanager
@@ -82,6 +86,9 @@ from .encode_host import (
 KERNEL_LAUNCHES = 0
 SERIAL_PACK_LAUNCHES = 0
 PARSE_LAUNCHES = 0
+# Launches of the match and record kernels, counted the same way.
+MATCH_LAUNCHES = 0
+RECORD_LAUNCHES = 0
 
 _M32 = 0xFFFFFFFF
 _I32 = torch.int32
@@ -168,13 +175,115 @@ def literal_context(d32: torch.Tensor, n: int, mode: int) -> torch.Tensor:
 # stage 1: match finding
 # ---------------------------------------------------------------------------
 
+def _check_matches(data_u8, n_valid, hash_stride, max_distance,
+                   chain_depth) -> None:
+    """The shapes and knobs csrc/matches.cu takes; raises on any other."""
+    if (data_u8.dim() != 2 or data_u8.dtype != torch.uint8
+            or not 0 < data_u8.shape[1] - (MATCH_CAP + 4) <= CHUNK_N):
+        raise ValueError(f"data_u8: want uint8 (B, N+{MATCH_CAP + 4}) with "
+                         f"0 < N <= {CHUNK_N}, got {data_u8.dtype} "
+                         f"{tuple(data_u8.shape)}")
+    B, N = data_u8.shape[0], data_u8.shape[1] - (MATCH_CAP + 4)
+    if tuple(n_valid.shape) != (B,) or n_valid.dtype != _I32:
+        raise ValueError(f"n_valid: want int32 ({B},), got {n_valid.dtype} "
+                         f"{tuple(n_valid.shape)}")
+    for name, t in (("data_u8", data_u8), ("n_valid", n_valid)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if n_valid.device != data_u8.device:
+        raise ValueError(f"n_valid is on {n_valid.device}, data_u8 on "
+                         f"{data_u8.device}")
+    if hash_stride not in (1, 2) or N % hash_stride:
+        raise ValueError(f"hash_stride must be 1 or 2 and divide N={N}, got "
+                         f"{hash_stride}")
+    if chain_depth < 1:
+        raise ValueError(f"chain_depth must be >= 1, got {chain_depth}")
+    if max_distance is not None and not 0 <= max_distance < 1 << 31:
+        raise ValueError(f"max_distance must be None or in [0, 2^31), got "
+                         f"{max_distance}")
+
+
+def _alloc_matches(data_u8):
+    B, N = data_u8.shape[0], data_u8.shape[1] - (MATCH_CAP + 4)
+    return (torch.empty((B, N), dtype=_I32, device=data_u8.device),
+            torch.empty((B, N), dtype=_I32, device=data_u8.device))
+
+
+def _matches_c_args(data_u8, n_valid, out, hash_stride, max_distance,
+                    chain_depth, hash2) -> list:
+    """The argument list of brotli_torch_matches (and its host shim)."""
+    B, N = data_u8.shape[0], data_u8.shape[1] - (MATCH_CAP + 4)
+    return ([t.data_ptr() for t in (data_u8, n_valid, *out)]
+            + [B, N, hash_stride, -1 if max_distance is None
+               else max_distance, chain_depth, int(bool(hash2))])
+
+
 def find_matches(data_u8: torch.Tensor, n_valid: torch.Tensor,
                  hash_stride: int = 1, max_distance: int | None = None,
                  chain_depth: int = 2, hash2: bool = False):
     """data_u8 (B, N+MATCH_CAP+4) uint8; n_valid (B,) int32.
 
     Returns (mlen, mdist) int32 (B, N): the best match (len >= 4) at each
-    position, 0 where there is none; see device_encode.find_matches.  The
+    position, 0 where there is none; see device_encode.find_matches.  N is
+    at most CHUNK_N, hash_stride 1 or 2, chain_depth >= 1; anything else
+    raises.  CPU tensors take find_matches_ref; CUDA tensors launch
+    csrc/matches.cu, one block per lane."""
+    global MATCH_LAUNCHES
+    _check_matches(data_u8, n_valid, hash_stride, max_distance, chain_depth)
+    dev = data_u8.device
+    if dev.type == "cpu":
+        return find_matches_ref(data_u8, n_valid, hash_stride, max_distance,
+                                chain_depth, hash2)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    from ..build import kernels_lib
+
+    out = _alloc_matches(data_u8)
+    with torch.cuda.device(dev):
+        rc = kernels_lib().brotli_torch_matches(
+            *_matches_c_args(data_u8, n_valid, out, hash_stride,
+                             max_distance, chain_depth, hash2),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"match kernel launch failed: cudaError {rc}")
+    MATCH_LAUNCHES += 1
+    return out
+
+
+def match_config(n: int) -> tuple[int, int]:
+    """(threads, dynamic shared bytes) of a block of csrc/matches.cu at
+    N = n: what a launch asks of an SM."""
+    from ..build import kernels_lib
+
+    out = (ctypes.c_int * 2)()
+    if kernels_lib().brotli_torch_matches_config(n, ctypes.addressof(out)):
+        raise ValueError(f"no match kernel launch at N={n}")
+    return out[0], out[1]
+
+
+def find_matches_host(data_u8: torch.Tensor, n_valid: torch.Tensor,
+                      hash_stride: int = 1, max_distance: int | None = None,
+                      chain_depth: int = 2, hash2: bool = False):
+    """csrc/matches.cuh's code built for the CPU (build.host_lib), with a
+    serial stable sort where the kernel sorts in shared memory: for the
+    tests, which hold it against find_matches_ref and JAX."""
+    from ..build import host_lib
+
+    _check_matches(data_u8, n_valid, hash_stride, max_distance, chain_depth)
+    if data_u8.device.type != "cpu":
+        raise ValueError("the host shim takes CPU tensors")
+    out = _alloc_matches(data_u8)
+    if host_lib().brotli_torch_matches_host(*_matches_c_args(
+            data_u8, n_valid, out, hash_stride, max_distance, chain_depth,
+            hash2)):
+        raise ValueError("host shim refused the batch")
+    return out
+
+
+def find_matches_ref(data_u8: torch.Tensor, n_valid: torch.Tensor,
+                     hash_stride: int = 1, max_distance: int | None = None,
+                     chain_depth: int = 2, hash2: bool = False):
+    """Plain PyTorch version of find_matches, on the inputs' device.  The
     keys of the row sort carry the position, so they are unique per lane,
     and a stable sort plus a gather of the payload words gives what
     `lax.sort(num_keys=1)` gives.  The sort back to position order is the
@@ -424,10 +533,114 @@ def greedy_parse_ref(mlen: torch.Tensor, mdist: torch.Tensor,
 # stage 3: symbol records
 # ---------------------------------------------------------------------------
 
+@functools.cache
+def _records_table(device: torch.device) -> torch.Tensor:
+    """csrc/records.cuh's constant table on `device`, staged once per
+    process from host memory (see _table_on): the insert offsets, the copy
+    offsets and the literal context LUTs of modes 2 and 3."""
+    return torch.as_tensor(np.concatenate(
+        [INSERT_LENGTH_OFFSET, COPY_LENGTH_OFFSET,
+         _CONTEXT_LUT[2 * 512: 4 * 512]]).astype(np.int32), device=device)
+
+
+def _check_records(data_u8, mlen, mdist, is_cs, is_lit, dcode_short,
+                   n_valid, contiguous: bool = True) -> None:
+    """The shapes csrc/records.cu takes; raises on any other.  The plain
+    version takes strided tensors too (greedy_parse_ref's outputs are
+    transposed views): `contiguous=False` leaves that out."""
+    if mlen.dim() != 2 or not mlen.shape[1]:
+        raise ValueError(f"mlen: want int32 (B, N), got {tuple(mlen.shape)}")
+    B, N = mlen.shape
+    if (data_u8.dim() != 2 or data_u8.dtype != torch.uint8
+            or data_u8.shape[0] != B or data_u8.shape[1] < N):
+        raise ValueError(f"data_u8: want uint8 ({B}, >= {N}), got "
+                         f"{data_u8.dtype} {tuple(data_u8.shape)}")
+    for name, t, dtype, shape in (
+            ("data_u8", data_u8, torch.uint8, tuple(data_u8.shape)),
+            ("mlen", mlen, _I32, (B, N)), ("mdist", mdist, _I32, (B, N)),
+            ("is_cs", is_cs, torch.bool, (B, N)),
+            ("is_lit", is_lit, torch.bool, (B, N)),
+            ("dcode_short", dcode_short, _I32, (B, N)),
+            ("n_valid", n_valid, _I32, (B,))):
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(f"{name}: want {dtype} {shape}, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+        if contiguous and not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.device != mlen.device:
+            raise ValueError(f"{name} is on {t.device}, mlen on {mlen.device}")
+
+
+def _alloc_records(mlen):
+    B, N = mlen.shape
+    return (torch.empty((B, N + 1), dtype=_I32, device=mlen.device),
+            torch.empty((B, N + 1), dtype=_I32, device=mlen.device),
+            torch.empty((B,), dtype=_I32, device=mlen.device))
+
+
+def _records_c_args(data_u8, mlen, mdist, is_cs, is_lit, dcode_short,
+                    n_valid, out, lit_ctx) -> list:
+    """The argument list of brotli_torch_records (and its host shim)."""
+    B, N = mlen.shape
+    tab = _records_table(mlen.device)
+    return ([t.data_ptr() for t in (data_u8, mlen, mdist, is_cs, is_lit,
+                                    dcode_short, n_valid, tab, *out)]
+            + [B, N, data_u8.shape[1], int(bool(lit_ctx))])
+
+
 def build_records(data_u8, mlen, mdist, is_cs, is_lit, dcode_short, n_valid,
                   lit_ctx: bool = False):
-    """Returns (rec0, rec1, n_records): (B, N+1) records in stream order;
-    see device_encode.build_records for the format and the placement."""
+    """Returns (rec0, rec1, n_records): (B, N+1) int32 records in stream
+    order and (B,) int32 counts; see device_encode.build_records for the
+    format and the placement.  data_u8 (B, >= N) uint8; mlen, mdist,
+    dcode_short (B, N) int32; is_cs, is_lit (B, N) bool; n_valid (B,)
+    int32.  CPU tensors take build_records_ref; CUDA tensors launch
+    csrc/records.cu, one warp per lane."""
+    global RECORD_LAUNCHES
+    dev = mlen.device
+    _check_records(data_u8, mlen, mdist, is_cs, is_lit, dcode_short, n_valid,
+                   contiguous=dev.type != "cpu")
+    if dev.type == "cpu":
+        return build_records_ref(data_u8, mlen, mdist, is_cs, is_lit,
+                                 dcode_short, n_valid, lit_ctx)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    from ..build import kernels_lib
+
+    out = _alloc_records(mlen)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    with torch.cuda.device(dev):
+        rc = kernels_lib().brotli_torch_records(
+            *_records_c_args(data_u8, mlen, mdist, is_cs, is_lit,
+                             dcode_short, n_valid, out, lit_ctx),
+            sms, torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"record kernel launch failed: cudaError {rc}")
+    RECORD_LAUNCHES += 1
+    return out
+
+
+def build_records_host(data_u8, mlen, mdist, is_cs, is_lit, dcode_short,
+                       n_valid, lit_ctx: bool = False):
+    """csrc/records.cuh's code built for the CPU (build.host_lib): for the
+    tests, which hold it against build_records_ref and JAX."""
+    from ..build import host_lib
+
+    _check_records(data_u8, mlen, mdist, is_cs, is_lit, dcode_short, n_valid)
+    if mlen.device.type != "cpu":
+        raise ValueError("the host shim takes CPU tensors")
+    out = _alloc_records(mlen)
+    if host_lib().brotli_torch_records_host(*_records_c_args(
+            data_u8, mlen, mdist, is_cs, is_lit, dcode_short, n_valid, out,
+            lit_ctx)):
+        raise ValueError("host shim refused the batch")
+    return out
+
+
+def build_records_ref(data_u8, mlen, mdist, is_cs, is_lit, dcode_short,
+                      n_valid, lit_ctx: bool = False):
+    """Plain PyTorch version of build_records, on the inputs' device:
+    whole-array ops, the reversed scans by flips."""
     B, N = mlen.shape
     dev = mlen.device
     pos = torch.arange(N, dtype=_I32, device=dev)[None, :].expand(B, N)
@@ -1196,6 +1409,8 @@ def _encode_start(data: bytes, device: torch.device, chunk_size: int,
                  hist_stride=hist_stride, block_types=nbt,
                  block_seg=block_seg)
     mark = None if on_stage is None else (lambda name: on_stage(name, state))
+    if mark is not None:
+        mark("upload")
     outs = device_stages(data_t, n_valid, hash_stride, max_distance,
                          chain_depth, lit_ctx, nbt, block_seg, hash2,
                          tuple(lazy), min_gate, mark)
@@ -1420,7 +1635,7 @@ def encode_device_batch(
     or the host decoder).  CPU tensors take the pack kernel's plain
     version; "cuda" launches the kernel, and raises without a card.
     `on_stage(name, state)`, when given, is called as each stage ends
-    (matches, parse, records, host tables, pack, assembly) with the
+    (upload, matches, parse, records, host tables, pack, assembly) with the
     encode's state; utils/profiling.profile_device_encode times them."""
     dev = resolve_device(device)
     data = bytes(data)

@@ -221,7 +221,7 @@ def profile_e2e_decode(streams: list[bytes],
 
 
 # encode_device_batch's stages as it reports them, and the phase names here
-ENCODE_STAGES = {"matches": "upload + matches", "parse": "parse",
+ENCODE_STAGES = {"upload": "upload", "matches": "matches", "parse": "parse",
                  "records": "records", "host tables": "host tables",
                  "pack": "pack kernel", "assembly": "assembly + fetch"}
 
@@ -232,8 +232,9 @@ def profile_device_encode(data: bytes, device: torch.device | str = "cuda",
 
     Returns (streams, phases, summary, state): the encode's streams; one
     phase per stage, each the interval between CUDA events recorded on the
-    stream at its ends (the host-tables stage is host work the stream waits
-    for, so its interval spans that host time); the summary's host-clock
+    stream at its ends (the upload's numpy staging and pageable copy, and
+    the host-tables stage, are host work the stream waits for, so their
+    intervals span that host time); the summary's host-clock
     wall, MB/s and ratio; and the encode's state, which keeps the pack
     kernel's input (`pb`) and output (`words`, `status`)."""
     from ..ops import device_encode as E
@@ -259,7 +260,7 @@ def profile_device_encode(data: bytes, device: torch.device | str = "cuda",
     phases = []
     prev = start
     for name, ev in marks:
-        kind = "host" if name == "host tables" else "device"
+        kind = "host" if name in ("upload", "host tables") else "device"
         phases.append(Phase(ENCODE_STAGES[name],
                             prev.elapsed_time(ev) / 1e3, kind))
         prev = ev

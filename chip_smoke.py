@@ -39,22 +39,33 @@ Phases, in order; any failure raises and the exit code is non-zero:
 7. enc main path -- encode_device_batch(device="cuda") of 1024 x 32 KB =
    33.6 MB at the default knobs, decoded back through
    decode_batch_device_e2e(device="cuda"): equal to the input, no host
-   fallback on either side, all four kernels launched (parse and pack once
-   each); CUDA events around each stage inside that one encode;
+   fallback on either side, all six kernels launched (matches, parse,
+   records and pack once each); CUDA events around each stage inside that
+   one encode (upload, matches, parse, records, host tables, pack,
+   assembly); the streams byte-identical to an encode of the same bytes
+   whose match and record stages are the plain versions;
 8. parse kernel == plain version on the card, bit for bit (is_cs, is_lit,
    dcode_short): 1024 x 2 KB at both lazy/gate knob sets over the matches
    of three match-finder settings, then the main encode's shape and knobs
    once, with the kernel's time;
-9. enc times -- the segmented and the serial pack kernel on the main
+9. match and record kernels == plain versions on the card, bit for bit
+   (mlen, mdist; rec0, rec1, n_records): 1024 x 2 KB under each match
+   setting of phase 8, hash2 and hash_stride 2 (records with and without
+   literal contexts, on the parse kernel's output), then the main
+   encode's shape once, each kernel timed beside its plain version and its
+   bound, and both again at the v3 cell's 1024 x 4 KB;
+10. enc times -- the segmented and the serial pack kernel on the main
    path's records in turns, and the plain version against the main path's
    kernel output and the serial kernel's;
-10. enc bench config -- the reference bench's encode setting at the same
-   shape: one parse and one pack launch counted, every stream decodes to
+11. enc bench config -- the reference bench's encode setting at the same
+   shape: one launch each of matches, parse, records and pack counted,
+   the streams byte-identical to the plain stages' encode, every stream
+   decodes to
    its chunk through decode_batch_v3(device="cuda", max_groups=8) with no
    fallback, no ovf lane, ratio, stage times, and the plain pack against
    both pack kernels bit for bit at the widest table indexing (8 groups x
    8 trees);
-11. v3 kernel == plain version on the card, bit for bit over the bytes and
+12. v3 kernel == plain version on the card, bit for bit over the bytes and
    all 16 status rows: 1024 x 1 KB port-encoded streams (4 context-mapped
    trees, 2 table groups), host q9/q11 encodes with tree groups and block
    switching in all three categories, one static-dictionary word per
@@ -63,27 +74,28 @@ Phases, in order; any failure raises and the exit code is non-zero:
    direct v3 kernel on each too; then the host q9/q11 encodes 256 times
    each (1024 lanes, copies from further back than the v3 cell's), the
    windowed kernel equal to the direct one and timed in turns with it;
-12. v3 main path -- the reference bench's full-format shape: 6 groups x
+13. v3 main path -- the reference bench's full-format shape: 6 groups x
    1024 x 4096 B = 25,165,824 B encoded on the card by encode_device_batch
-   (lit_ctx_trees=8), decoded by decode_batch_v3(device="cuda",
+   (lit_ctx_trees=8; one launch each of matches and records a call,
+   counted from 0), decoded by decode_batch_v3(device="cuda",
    max_groups=6, dict_dev=stage_dictionary("cuda")): equal to the input,
    no fallback, the decode3 kernel launched on the staged dictionary;
    host clock of the call split into the native preflight, the staging,
    the kernel, the copies back and the per-lane copies; then the native
    preflight (best of 3) and the Python one (once) on the same streams,
    their V3Batches equal field for field;
-13. v3 times with CUDA events on the staged main batch: the kernel at
+14. v3 times with CUDA events on the staged main batch: the kernel at
    use_dict=False (the bench's timed setting; in turns with the direct
    kernel) and True, the output allocation and fill alone, and the plain
    version once, equal to both kernels;
-14. v3 block types -- 1024 x 4 KB encoded on the card with block
+15. v3 block types -- 1024 x 4 KB encoded on the card with block
    switching (lit_ctx_trees=4, block_types=3, block_seg=512), each stream
    with initial block lengths of its own, through decode_batch_v3(device=
    "cuda") at the port's cap: the groups of the Python preflight's binning
    (over the cap) and of the native one, bit-exact output, 0 fallback
    lanes, one decode3 launch counted from 0, the call's host clock (the
    native preflight apart) against the host decoder's;
-15. v3 full -- decode_batch_v3_full(device="cuda") on 1024 lanes of three
+16. v3 full -- decode_batch_v3_full(device="cuda") on 1024 lanes of three
    64 KB streams (a streaming Encoder(quality=5, lgwin=18) fed 1 KB updates
    in 16 KB metablocks, a spliced parallel_encode stream, an uncompressed
    one):
@@ -93,7 +105,7 @@ Phases, in order; any failure raises and the exit code is non-zero:
    round's groups beside the
    Python preflight's binning of the same units; then each round's batch
    through both kernels, equal, timed in turns;
-16. caps -- the group-cap sweep at 12, 16, 24 and 32 groups: v2, the
+17. caps -- the group-cap sweep at 12, 16, 24 and 32 groups: v2, the
    main-path streams G times, both v2 kernels (resolve in turns with its
    direct form); v3, the staged v3 cell
    tiled to G groups, decode3; kernel times, MB/s, peak device memory,
@@ -106,13 +118,13 @@ Phases, in order; any failure raises and the exit code is non-zero:
    groups, the call's host clock (with the native preflight's share),
    peak device memory and kernel times (the v2 resolve in turns with its
    direct form), against the host decoder on the same streams;
-17. probes -- run_probe_v2 at every level and run_probe_v2b at every
+18. probes -- run_probe_v2 at every level and run_probe_v2b at every
    variant of the TPU scripts, launches counted from 0; each kernel's
    outputs held against its plain version bit for bit; ns per row;
-18. profile -- profile_e2e_decode on the main-path batch: per-phase times
+19. profile -- profile_e2e_decode on the main-path batch: per-phase times
    and the device's busy share from torch.profiler (Chrome trace in
    brotli_tpu_torch/build/trace/);
-19. multi v2 -- the v2 cell's 4 groups through decode_batches_multichip
+20. multi v2 -- the v2 cell's 4 groups through decode_batches_multichip
    over 4 logical slots (4 CUDA streams on one card): bit-exact, 0
    fallback lanes, 4 entropy and 4 resolve launches; the wall against the
    same groups through one slot (best of 3 each, in turns); one profiled
@@ -120,21 +132,21 @@ Phases, in order; any failure raises and the exit code is non-zero:
    streams ran at once (Chrome trace in brotli_tpu_torch/build/trace/
    multi_v2/), and the same overlap from CUDA events around the kernels'
    wrappers on each slot's stream;
-20. multi enc -- 4 x 1024 x 32 KB (128 MiB) through
+21. multi enc -- 4 x 1024 x 32 KB (128 MiB) through
    encode_batches_multichip over 4 slots: each piece byte-identical to
    encode_device_batch of it, decoded back through
    decode_batches_multichip with 0 fallback lanes, 4 launches of each of
-   parse, pack, entropy, resolve;
-21. multi v3 -- the v3 cell's first 2,048 streams through
+   matches, parse, records, pack, entropy, resolve;
+22. multi v3 -- the v3 cell's first 2,048 streams through
    decode_batch_v3_multichip over 4 slots in groups of 512, the dictionary
    staged once: bit-exact, 0 fallback lanes, 4 decode3 launches;
-22. multihost -- brotli_tpu_torch.tools.multihost_sim on the card: 2
+23. multihost -- brotli_tpu_torch.tools.multihost_sim on the card: 2
    processes x 2 slots over gloo, 4 x 1024 x 8 KB encoded on the card and
    decoded back; every process's lists equal the input and the
    single-process encode;
-23. dryrun -- entry.dryrun_multichip(4) on the card;
-24. entry() -- the port's entry point called once and synchronised;
-25. zopfli -- the q10 Zopfli DP's window kernel (csrc/zopfli.cu
+24. dryrun -- entry.dryrun_multichip(4) on the card;
+25. entry() -- the port's entry point called once and synchronised;
+26. zopfli -- the q10 Zopfli DP's window kernel (csrc/zopfli.cu
    zopfli_kernel, built with -fmad=false) == its direct kernel
    (zopfli_direct_kernel) == zopfli_dp_ref on CUDA tensors, every node
    array, result and count bit for bit, 2 lanes x 2 KB;
@@ -150,9 +162,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
    window, shared memory); the host parse's times on the same inputs
    (host clock, the 64 KB three times).
 
-Each of phases 19-23 sets the launch counters to 0 just before it and
+Each of phases 20-24 sets the launch counters to 0 just before it and
 reads them just after; the kernel line gives them as `multi_launches`.
-Phase 25 sets the DP kernels' counters to 0 just before each main-path
+Phase 26 sets the DP kernels' counters to 0 just before each main-path
 call of zopfli_commands_device and reads them just after.
 
 Kernel times come from utils.benchmarks.time_device_fn (CUDA events) and
@@ -412,7 +424,8 @@ def phase_build(tag: str) -> None:
         short = next((k for k in ("decode2_direct_kernel", "decode2_kernel",
                                   "decode3_direct_kernel", "decode3_kernel",
                                   "resolve_direct_kernel", "resolve_kernel",
-                                  "zopfli_direct_kernel", "zopfli_kernel")
+                                  "zopfli_direct_kernel", "zopfli_kernel",
+                                  "match_kernel", "records_kernel")
                       if k in name), None)
         if short:
             print(f"[build] {short}: {'; '.join(lines)}")
@@ -869,22 +882,29 @@ def phase_enc_card_vs_cpu() -> None:
 
 def encode_counted(data: bytes, **kw) -> tuple[list[bytes], float, dict]:
     """encode_device_batch on the card through profile_device_encode, the
-    pack and parse launches counted from 0 and the stages timed inside that
-    encode; returns (streams, host-clock s, what was seen: launches, phases,
+    match, parse, record and pack launches counted from 0 and the stages
+    timed inside that encode, then the same encode with the plain match and
+    record stages, whose streams must be the same; returns (streams,
+    host-clock s, what was seen: launches, phases,
     the pack kernel's input `pb` and output `pack_out`, the encode's
     state).  The launch counts are read before anything else launches the
     kernels."""
     import brotli_tpu_torch
     from brotli_tpu_torch.ops import device_encode as E
+    from brotli_tpu_torch.tools.enc_stages import plain_stages
     from brotli_tpu_torch.utils.profiling import profile_device_encode
 
     enc0 = brotli_tpu_torch.encode_fallback_stats()["lanes_fallback"]
     E.KERNEL_LAUNCHES = 0
     E.PARSE_LAUNCHES = 0
+    E.MATCH_LAUNCHES = 0
+    E.RECORD_LAUNCHES = 0
     streams, phases, summary, state = profile_device_encode(
         data, "cuda", chunk_size=ENC_CHUNK, **kw)
     seen = {"launches": E.KERNEL_LAUNCHES,
-            "parse_launches": E.PARSE_LAUNCHES, "phases": phases,
+            "parse_launches": E.PARSE_LAUNCHES,
+            "match_launches": E.MATCH_LAUNCHES,
+            "record_launches": E.RECORD_LAUNCHES, "phases": phases,
             "pb": state["pb"], "pack_out": (state["words"], state["status"]),
             "state": state}
     fell = brotli_tpu_torch.encode_fallback_stats()["lanes_fallback"] - enc0
@@ -894,6 +914,14 @@ def encode_counted(data: bytes, **kw) -> tuple[list[bytes], float, dict]:
           f"the pack kernel launched {seen['launches']} times, want 1")
     check(seen["parse_launches"] == 1,
           f"the parse kernel launched {seen['parse_launches']} times, want 1")
+    check(seen["match_launches"] == 1 and seen["record_launches"] == 1,
+          f"the match and record kernels launched {seen['match_launches']} "
+          f"and {seen['record_launches']} times, want 1 each")
+    with plain_stages():
+        plain = brotli_tpu_torch.encode_device_batch(
+            data, device="cuda", chunk_size=ENC_CHUNK, **kw)
+    check(plain == streams, "the streams differ from those of the plain "
+          "match and record stages")
     sizes = E.stream_sizes(state)
     check(list(sizes) == [len(s) for s in streams],
           "stream_sizes disagrees with the streams' lengths")
@@ -957,7 +985,9 @@ def phase_enc_main(data: bytes, card_str: str):
     got = brotli_tpu_torch.decode_batch_device_e2e(streams, device="cuda")
     torch.cuda.synchronize()
     dec_s = time.perf_counter() - t0
-    launches = {"parse": seen["parse_launches"], "pack": seen["launches"],
+    launches = {"matches": seen["match_launches"],
+                "parse": seen["parse_launches"],
+                "records": seen["record_launches"], "pack": seen["launches"],
                 "entropy": D.KERNEL_LAUNCHES, "resolve": R.KERNEL_LAUNCHES}
     check(D.DIRECT_LAUNCHES == 0 and R.DIRECT_LAUNCHES == 0,
           "the encode main path's decode launched a direct kernel")
@@ -971,7 +1001,9 @@ def phase_enc_main(data: bytes, card_str: str):
           f"({len(data) / enc_s / 1e6:.3f} MB/s, host clock, whole "
           f"encode_device_batch), ratio {ratio:.6f}; decoded back bit-exact "
           f"in {dec_s:.3f} s; 0 ovf lanes, 0 decode fallback lanes, "
-          f"stream_sizes equals every stream's length, launches {launches}")
+          f"stream_sizes equals every stream's length, streams "
+          f"byte-identical to the plain match and record stages' encode, "
+          f"launches {launches}")
     line = enc_breakdown(seen)
     print(f"[enc times] {card_str}: default knobs, inside that encode "
           f"(profile_device_encode: CUDA events at each stage's ends, one "
@@ -979,14 +1011,17 @@ def phase_enc_main(data: bytes, card_str: str):
     return launches, seen
 
 
-def phase_enc_bench(data: bytes, card_str: str) -> int:
+def phase_enc_bench(data: bytes, card_str: str) -> tuple[int, dict]:
     """The reference bench's encode setting: the streams decoded back
-    through the v3 kernel, the pack kernel counted and held against its
-    plain version at this shape."""
+    through the v3 kernel, the kernels counted and the pack kernel held
+    against its plain version at this shape; returns (pack max_abs_err,
+    the match and record launches)."""
     import brotli_tpu_torch
     from brotli_tpu_torch.ops import decode3 as D3
 
     streams, dt, seen = encode_counted(data, **ENC_BENCH)
+    launches = {"matches": seen["match_launches"],
+                "records": seen["record_launches"]}
     fb0 = brotli_tpu_torch.fallback_stats()["lanes_fallback"]
     n0 = D3.KERNEL_LAUNCHES
     t0 = time.perf_counter()
@@ -1005,8 +1040,10 @@ def phase_enc_bench(data: bytes, card_str: str) -> int:
           f"decode_batch_v3(device='cuda') in "
           f"{dec_s:.3f} s (host clock), 0 fallback lanes, 0 ovf lanes, ratio "
           f"{ratio:.6f}, encode {dt:.3f} s ({len(data) / dt / 1e6:.3f} MB/s, "
-          f"host clock), parse launches {seen['parse_launches']}, pack "
-          f"launches {seen['launches']}")
+          f"host clock), launches: matches {seen['match_launches']}, parse "
+          f"{seen['parse_launches']}, records {seen['record_launches']}, pack "
+          f"{seen['launches']}; streams byte-identical to the plain match "
+          f"and record stages' encode")
     line = enc_breakdown(seen)
     print(f"[enc times] {card_str}: bench setting, inside that encode "
           f"(profile_device_encode, one run): {line}")
@@ -1015,7 +1052,7 @@ def phase_enc_bench(data: bytes, card_str: str) -> int:
           f"({seen['pb'].tab.shape[0]} groups x {seen['pb'].nt} trees): "
           f"max_abs_err {err} over words and status (segmented and serial "
           f"pack); plain pack {plain:.3f} ms (CUDA events, one run)")
-    return err
+    return err, launches
 
 
 # the parse's lazy / gate knob sets, and match-finder settings whose
@@ -1081,6 +1118,131 @@ def phase_parse_kernel_vs_plain(enc_data: bytes, card_str: str) -> dict:
           f"events, one run); bound {bound[0]:.6f} ms ({bound[1]})")
     return {"ms": ms, "plain_ms": plain, "err": max(worst, err),
             "bound": bound}
+
+
+# the match settings of the match and record kernels' checks: the
+# parse's, the 7-byte hash and the strided hash
+MATCH_SETS = {**PARSE_MATCH_SETS,
+              "hash2": dict(chain_depth=4, hash2=True),
+              "hash_stride 2": dict(hash_stride=2)}
+V3_MATCH = dict(max_distance=V3_BENCH["max_distance"],
+                chain_depth=V3_BENCH["chain_depth"])
+
+
+def match_bound(data_t, n_valid) -> tuple[float, str]:
+    """The match kernel's bytes: each lane's N + 12 data bytes and n_valid
+    in, mlen and mdist out."""
+    B, npad = data_t.shape
+    return bound_ms(B * npad + 4 * B + 8 * B * (npad - 12))
+
+
+def records_bound(mlen) -> tuple[float, str]:
+    """The record kernel's bytes: the data (N bytes a lane), mlen, mdist,
+    dcode_short (4 B), is_cs and is_lit (1 B), n_valid and the code table
+    in; rec0 and rec1 (N + 1 rows) and n_records out."""
+    B, N = mlen.shape
+    return bound_ms(B * N * 15 + 4 * B + 4 * 1072 + 8 * B * (N + 1) + 4 * B)
+
+
+def records_pair(data_t, n_valid, mkw: dict, lit_ctx: bool, timed: bool):
+    """The match kernel's output parsed by the parse kernel, then the
+    record kernel against build_records_ref on it; with `timed`, both
+    timed.  Returns (max_abs_err, kernel ms, plain ms, bound)."""
+    from brotli_tpu_torch.ops import device_encode as E
+
+    mlen, mdist = E.find_matches(data_t, n_valid, **mkw)
+    ins = (data_t, mlen, mdist, *E.greedy_parse(mlen, mdist, n_valid),
+           n_valid)
+    out = {}
+    if timed:
+        ms = device_ms(lambda: out.__setitem__(
+            "k", E.build_records(*ins, lit_ctx=lit_ctx)))
+        plain = plain_ms(lambda: out.__setitem__(
+            "p", E.build_records_ref(*ins, lit_ctx=lit_ctx)))
+    else:
+        out["k"] = E.build_records(*ins, lit_ctx=lit_ctx)
+        out["p"] = E.build_records_ref(*ins, lit_ctx=lit_ctx)
+        ms = plain = None
+    torch.cuda.synchronize()
+    return max_abs_err(out["k"], out["p"]), ms, plain, records_bound(mlen)
+
+
+def matches_pair(data_t, n_valid, mkw: dict, timed: bool):
+    """The match kernel against find_matches_ref; with `timed`, both timed.
+    Returns (max_abs_err, kernel ms, plain ms, bound, matches found)."""
+    from brotli_tpu_torch.ops import device_encode as E
+
+    out = {}
+    if timed:
+        ms = device_ms(lambda: out.__setitem__(
+            "k", E.find_matches(data_t, n_valid, **mkw)))
+        plain = plain_ms(lambda: out.__setitem__(
+            "p", E.find_matches_ref(data_t, n_valid, **mkw)))
+    else:
+        out["k"] = E.find_matches(data_t, n_valid, **mkw)
+        out["p"] = E.find_matches_ref(data_t, n_valid, **mkw)
+        ms = plain = None
+    torch.cuda.synchronize()
+    return (max_abs_err(out["k"], out["p"]), ms, plain,
+            match_bound(data_t, n_valid), int((out["k"][0] > 0).sum()))
+
+
+def phase_match_record_kernels(enc_data: bytes, card_str: str) -> dict:
+    """find_matches' and build_records' kernels against their plain
+    versions on CUDA tensors: 1024 x 2 KB under every match setting of
+    MATCH_SETS (records with and without literal contexts), then the main
+    encode's shape and knobs, timed, and the v3 cell's 1024 x 4 KB."""
+    from brotli_tpu_torch.ops import device_encode as E
+
+    cuda = torch.device("cuda")
+    data_t, _, n_valid = E.stage_input(corpus(1024 * 2048), 2048, cuda)
+    worst = {"matches": 0, "records": 0}
+    for mname, mkw in MATCH_SETS.items():
+        err, _, _, _, found = matches_pair(data_t, n_valid, mkw, False)
+        rerr = [records_pair(data_t, n_valid, mkw, lit_ctx, False)[0]
+                for lit_ctx in (False, True)]
+        check(err == 0, f"match kernel != plain version ({mname}): {err}")
+        check(rerr == [0, 0],
+              f"record kernel != plain version ({mname}): {rerr}")
+        worst["matches"] = max(worst["matches"], err)
+        worst["records"] = max(worst["records"], *rerr)
+        print(f"[matches kernel==plain] 1024 lanes x 2 KB, {mname}: "
+              f"max_abs_err {err} over mlen, mdist ({found} matches; exact "
+              "equality required)")
+        print(f"[records kernel==plain] 1024 lanes x 2 KB, matches {mname}, "
+              f"lit_ctx False / True: max_abs_err {rerr[0]} / {rerr[1]} over "
+              "rec0, rec1, n_records (exact equality required)")
+    res = {}
+    for tag, chunk, mkw in (("main", ENC_CHUNK, {}),
+                            ("v3", V3_BENCH["chunk_size"], V3_MATCH)):
+        data = enc_data[: 1024 * chunk]
+        data_t, _, n_valid = E.stage_input(data, chunk, cuda)
+        err, ms, plain, bound, found = matches_pair(data_t, n_valid, mkw,
+                                                    True)
+        rerr, rms, rplain, rbound = records_pair(data_t, n_valid, mkw,
+                                                 tag == "v3", True)
+        check(err == 0 and rerr == 0, f"match / record kernel != plain "
+              f"version at 1024 x {chunk} B: {err}, {rerr}")
+        threads, smem = E.match_config(chunk)
+        knobs = mkw or "default knobs"
+        print(f"[matches kernel==plain] 1024 lanes x {chunk} B, {knobs}: "
+              f"max_abs_err {err} ({found} matches); records (lit_ctx "
+              f"{tag == 'v3'}) max_abs_err {rerr}")
+        print(f"[enc times] {card_str}: match kernel {ms:.4f} ms per 1024 x "
+              f"{chunk} B (time_device_fn: CUDA events, best of 3 windows of "
+              f"5; {threads} threads and {smem} B dynamic shared memory a "
+              f"block, a block a lane); plain find_matches_ref {plain:.3f} "
+              f"ms (CUDA events, one run); bound {bound[0]:.6f} ms "
+              f"({bound[1]}), {100 * bound[0] / ms:.2f}% of it")
+        print(f"[enc times] {card_str}: record kernel {rms:.4f} ms per 1024 "
+              f"x {chunk} B (the same timer; a warp a lane); plain "
+              f"build_records_ref {rplain:.3f} ms (one run); bound "
+              f"{rbound[0]:.6f} ms ({rbound[1]}), "
+              f"{100 * rbound[0] / rms:.2f}% of it")
+        res[tag] = {"ms": ms, "plain_ms": plain, "bound": bound,
+                    "rms": rms, "rplain_ms": rplain, "rbound": rbound}
+    return {"match_err": worst["matches"], "record_err": worst["records"],
+            **res}
 
 
 def phase_enc_times(seen: dict, card_str: str) -> dict:
@@ -1242,13 +1404,16 @@ def phase_v3_kernel_vs_plain(card_str: str) -> int:
     return worst
 
 
-def v3_main_streams(card_str: str) -> tuple[bytes, list[bytes]]:
-    """6 x 1024 x 4 KB, one encode_device_batch call per group."""
+def v3_main_streams(card_str: str) -> tuple[bytes, list[bytes], dict]:
+    """6 x 1024 x 4 KB, one encode_device_batch call per group; returns
+    (bytes, streams, the match and record launches, counted from 0)."""
     import brotli_tpu_torch
+    from brotli_tpu_torch.ops import device_encode as E
 
     piece = 1024 * V3_BENCH["chunk_size"]
     data = corpus(V3_GROUPS * piece)
     enc0 = brotli_tpu_torch.encode_fallback_stats()["lanes_fallback"]
+    E.MATCH_LAUNCHES = E.RECORD_LAUNCHES = 0
     t0 = time.perf_counter()
     streams = []
     for g in range(V3_GROUPS):
@@ -1256,13 +1421,17 @@ def v3_main_streams(card_str: str) -> tuple[bytes, list[bytes]]:
             data[g * piece:(g + 1) * piece], device="cuda", **V3_BENCH)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
+    launches = {"matches": E.MATCH_LAUNCHES, "records": E.RECORD_LAUNCHES}
     fell = brotli_tpu_torch.encode_fallback_stats()["lanes_fallback"] - enc0
     check(fell == 0, f"{fell} v3 main lanes overflowed (host-encoded)")
     check(len(streams) == V3_GROUPS * 1024, f"{len(streams)} streams")
+    check(launches == {"matches": V3_GROUPS, "records": V3_GROUPS},
+          f"[v3 main] encode launches {launches}, want {V3_GROUPS} each")
     print(f"[v3 main] {card_str}: {len(data)} B encoded on the card by "
           f"{V3_GROUPS} encode_device_batch calls ({V3_BENCH}) in {dt:.3f} s (host "
-          f"clock), ratio {sum(map(len, streams)) / len(data):.6f}")
-    return data, streams
+          f"clock), ratio {sum(map(len, streams)) / len(data):.6f}, "
+          f"launches {launches} (counted from 0)")
+    return data, streams, launches
 
 
 def phase_v3_main(data: bytes, streams: list[bytes], card_str: str):
@@ -1720,7 +1889,8 @@ def launches_now() -> dict:
     from brotli_tpu_torch.ops import resolve as R
 
     return {"entropy": D.KERNEL_LAUNCHES, "resolve": R.KERNEL_LAUNCHES,
-            "parse": E.PARSE_LAUNCHES, "pack": E.KERNEL_LAUNCHES,
+            "matches": E.MATCH_LAUNCHES, "parse": E.PARSE_LAUNCHES,
+            "records": E.RECORD_LAUNCHES, "pack": E.KERNEL_LAUNCHES,
             "decode3": D3.KERNEL_LAUNCHES, "zopfli": Z.KERNEL_LAUNCHES}
 
 
@@ -1736,7 +1906,8 @@ def zero_launches() -> None:
                        (R, ("KERNEL_LAUNCHES", "DIRECT_LAUNCHES")),
                        (D3, ("KERNEL_LAUNCHES", "DIRECT_LAUNCHES")),
                        (E, ("KERNEL_LAUNCHES", "PARSE_LAUNCHES",
-                            "SERIAL_PACK_LAUNCHES")),
+                            "SERIAL_PACK_LAUNCHES", "MATCH_LAUNCHES",
+                            "RECORD_LAUNCHES")),
                        (Z, ("KERNEL_LAUNCHES", "DIRECT_LAUNCHES"))):
         for name in names:
             setattr(mod, name, 0)
@@ -1909,8 +2080,10 @@ def phase_multi_enc(card_str: str) -> dict:
     launches = launches_now()
     no_direct_launches("[multi enc]")
     check(efell == 0, f"[multi enc] {efell} lanes host-encoded")
-    check(enc_l["parse"] == SLOTS and enc_l["pack"] == SLOTS,
-          f"[multi enc] encode launches {enc_l}, want {SLOTS} parse and pack")
+    check(all(enc_l[k] == SLOTS
+              for k in ("matches", "parse", "records", "pack")),
+          f"[multi enc] encode launches {enc_l}, want {SLOTS} of matches, "
+          "parse, records and pack")
     check(b"".join(back) == data, "[multi enc] round trip differs")
     check(dfell == 0, f"[multi enc] {dfell} decode fallback lanes")
     check(launches["entropy"] == SLOTS and launches["resolve"] == SLOTS,
@@ -1931,7 +2104,8 @@ def phase_multi_enc(card_str: str) -> dict:
           f"({SLOTS} such calls in turn {one_s:.3f} s); decoded back "
           f"bit-exact by decode_batches_multichip in {dec_s:.3f} s; 0 ovf "
           f"lanes, 0 fallback lanes; launches {launches}")
-    return {k: launches[k] for k in ("parse", "pack", "entropy", "resolve")}
+    return {k: launches[k] for k in ("matches", "parse", "records", "pack",
+                                     "entropy", "resolve")}
 
 
 def phase_multi_v3(data: bytes, streams: list[bytes], card_str: str) -> dict:
@@ -2325,12 +2499,13 @@ def main() -> int:
     enc_data = corpus(1024 * ENC_CHUNK)
     enc_launches, enc_seen = phase_enc_main(enc_data, card_str)
     parse = phase_parse_kernel_vs_plain(enc_data, card_str)
+    mr = phase_match_record_kernels(enc_data, card_str)
     enc_times = phase_enc_times(enc_seen, card_str)
     del enc_seen
-    bench_err = phase_enc_bench(enc_data, card_str)
+    bench_err, bench_launches = phase_enc_bench(enc_data, card_str)
     del enc_data
     v3_err = phase_v3_kernel_vs_plain(card_str)
-    v3_data, v3_streams = v3_main_streams(card_str)
+    v3_data, v3_streams, v3_enc_launches = v3_main_streams(card_str)
     v3_launches, v3_batch = phase_v3_main(v3_data, v3_streams, card_str)
     # each lane's expected bytes, in the staged batch's lane order
     v3_rows = torch.frombuffer(bytearray(v3_data), dtype=torch.uint8).view(
@@ -2369,7 +2544,9 @@ def main() -> int:
     def row(name, source, replaces, n, err, ms, plain, bound):
         key = {"entropy_decode": "entropy", "resolve_tokens": "resolve",
                "greedy_parse": "parse", "pack_records": "pack",
-               "decode3": "decode3", "zopfli_dp": "zopfli"}.get(name)
+               "decode3": "decode3", "zopfli_dp": "zopfli",
+               "find_matches": "matches",
+               "build_records": "records"}.get(name)
         return {"name": name, "route": "cuda",
                 "source": f"brotli_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": n, "max_abs_err": err,
@@ -2409,6 +2586,25 @@ def main() -> int:
          "direct_ms": v3_times["direct_ms"],
          # launches on [v3 block types], counted from 0
          "block_types_launches": bt_launches},
+        # ms, plain_ms and bound at the main encode's 1024 x 32 KB; the
+        # v3 cell's 1024 x 4 KB beside them; launches on [enc bench-config]
+        # and [v3 main] (6 encodes), each counted from 0
+        {**row("find_matches", "matches.cu",
+               "brotli_tpu/ops/device_encode.py:157", enc_launches["matches"],
+               mr["match_err"], mr["main"]["ms"], mr["main"]["plain_ms"],
+               mr["main"]["bound"]),
+         "ms_4k": mr["v3"]["ms"], "plain_ms_4k": mr["v3"]["plain_ms"],
+         "bound_ms_4k": mr["v3"]["bound"][0],
+         "bench_launches": bench_launches["matches"],
+         "v3_launches": v3_enc_launches["matches"]},
+        {**row("build_records", "records.cu",
+               "brotli_tpu/ops/device_encode.py:424", enc_launches["records"],
+               mr["record_err"], mr["main"]["rms"], mr["main"]["rplain_ms"],
+               mr["main"]["rbound"]),
+         "ms_4k": mr["v3"]["rms"], "plain_ms_4k": mr["v3"]["rplain_ms"],
+         "bound_ms_4k": mr["v3"]["rbound"][0],
+         "bench_launches": bench_launches["records"],
+         "v3_launches": v3_enc_launches["records"]},
         row("probe_v2", "probe.cu", "tools/probe_v2.py:15",
             probes["launches"]["probe_v2"], pv2["err"], pv2["ms"],
             pv2["plain_ms"], pv2["bound"]),

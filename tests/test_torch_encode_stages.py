@@ -1,5 +1,7 @@
 """Stages of the port's device encoder (brotli_tpu_torch.ops.device_encode)
-against the JAX functions of brotli_tpu.ops.device_encode, on the CPU.
+against the JAX functions of brotli_tpu.ops.device_encode, on the CPU.  The
+match finder and the record builder are held in two forms: the plain
+PyTorch version and the host build of their CUDA kernels' per-lane code.
 
 Tolerance: exact equality for every stage, the float32 block typing
 included (the test batches type every segment as JAX does).  Inputs are
@@ -109,14 +111,39 @@ KNOBS = {
 }
 
 
-@pytest.mark.parametrize("name", list(KNOBS))
-def test_find_matches(batch, name):
+# the port's forms of a stage: the plain PyTorch version (what a CPU
+# tensor takes) and the host build of the CUDA kernel's per-lane code; the
+# plain form keeps the test ids it had before the kernels
+FORMS = {"plain": (TE.find_matches, TE.build_records),
+         "host": (TE.find_matches_host, TE.build_records_host)}
+
+
+def _form_cases(name, params):
+    """parametrize(name + ",form", ...) over FORMS x params."""
+    cases = [(p, f) for f in FORMS for p in params]
+    ids = [str(p) if f == "plain" else f"{f}-{p}" for p, f in cases]
+    return pytest.mark.parametrize(f"{name},form", cases, ids=ids)
+
+
+_JAX_MATCHES = {}
+
+
+def _jax_matches(arr, nv, name):
+    """JAX's matches under KNOBS[name], computed once per knob set."""
+    if name not in _JAX_MATCHES:
+        kw = KNOBS[name]
+        args = (kw.get("hash_stride", 1), kw.get("max_distance"),
+                kw.get("chain_depth", 2), kw.get("hash2", False))
+        _JAX_MATCHES[name] = (args, JE.find_matches(
+            jnp.asarray(arr), jnp.asarray(nv), *args))
+    return _JAX_MATCHES[name]
+
+
+@_form_cases("name", list(KNOBS))
+def test_find_matches(batch, name, form):
     arr, nv = batch
-    kw = KNOBS[name]
-    args = (kw.get("hash_stride", 1), kw.get("max_distance"),
-            kw.get("chain_depth", 2), kw.get("hash2", False))
-    j = JE.find_matches(jnp.asarray(arr), jnp.asarray(nv), *args)
-    p = TE.find_matches(_t(arr), _t(nv), *args)
+    args, j = _jax_matches(arr, nv, name)
+    p = FORMS[form][0](_t(arr), _t(nv), *args)
     _same(j, p)
     mlen = p[0].numpy()
     assert mlen.max() == JE.MAX_LEN          # the zero run splits
@@ -130,8 +157,9 @@ def test_hash_wraps_like_int32():
     arr[1, ::3] = 0x80
     nv = np.full(2, 64, np.int32)
     for hash2 in (False, True):
-        _same(JE.find_matches(jnp.asarray(arr), jnp.asarray(nv), hash2=hash2),
-              TE.find_matches(_t(arr), _t(nv), hash2=hash2))
+        j = JE.find_matches(jnp.asarray(arr), jnp.asarray(nv), hash2=hash2)
+        _same(j, TE.find_matches(_t(arr), _t(nv), hash2=hash2))
+        _same(j, TE.find_matches_host(_t(arr), _t(nv), hash2=hash2))
 
 
 @pytest.mark.parametrize("lazy,min_gate", [((105, 175), 9), ((60, 120), 12)])
@@ -144,14 +172,14 @@ def test_greedy_parse(batch, lazy, min_gate):
     assert p[0].any() and (p[2].numpy() > 0).any()   # ring hits occur
 
 
-@pytest.mark.parametrize("lit_ctx", [False, True])
-def test_build_records(batch, jax_parse, lit_ctx):
+@_form_cases("lit_ctx", [False, True])
+def test_build_records(batch, jax_parse, lit_ctx, form):
     arr, nv = batch
     mlen, mdist, parse = jax_parse
     j = JE.build_records(jnp.asarray(arr), mlen, mdist, *parse,
                          jnp.asarray(nv), lit_ctx=lit_ctx)
-    p = TE.build_records(_t(arr), _t(mlen), _t(mdist),
-                         *[_t(x) for x in parse], _t(nv), lit_ctx=lit_ctx)
+    p = FORMS[form][1](_t(arr), _t(mlen), _t(mdist),
+                       *[_t(x) for x in parse], _t(nv), lit_ctx=lit_ctx)
     _same(j, p)
 
 
