@@ -169,7 +169,11 @@ def kernels_lib() -> ctypes.CDLL:
             "brotli_torch_parse": _PARSE_ARGS + [_P],
             "brotli_torch_matches": _MATCHES_ARGS + [_P],
             "brotli_torch_matches_config": [_I, _P],
+            "brotli_torch_matches_direct": _MATCHES_ARGS + [_P],
+            "brotli_torch_matches_direct_config": [_I, _P],
+            "brotli_torch_records_direct": _RECORDS_ARGS + [_I, _P],  # + SMs
             "brotli_torch_records": _RECORDS_ARGS + [_I, _P],  # + SMs
+            "brotli_torch_records_config": [_I, _P],
             "brotli_torch_zopfli": _ZOPFLI_ARGS + [_P],
             "brotli_torch_zopfli_direct": _ZOPFLI_DIRECT_ARGS + [_P],
             "brotli_torch_probe_v2": _PROBE_V2_ARGS + [_P],
@@ -197,8 +201,8 @@ def host_lib() -> ctypes.CDLL:
             "brotli_torch_pack_host": _PACK_ARGS,
             "brotli_torch_pack_serial_host": _PACK_SERIAL_ARGS,
             "brotli_torch_parse_host": _PARSE_ARGS,
-            "brotli_torch_matches_host": _MATCHES_ARGS,
-            "brotli_torch_records_host": _RECORDS_ARGS,
+            "brotli_torch_matches_host": _MATCHES_ARGS + [_I],  # + seg
+            "brotli_torch_records_host": _RECORDS_ARGS + [_I],  # + segments
             "brotli_torch_zopfli_host": _ZOPFLI_ARGS,
             "brotli_torch_zopfli_direct_host": _ZOPFLI_DIRECT_ARGS,
             "brotli_torch_zopfli_min_len_host": [_P, _I, _I,

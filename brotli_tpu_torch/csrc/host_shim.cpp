@@ -647,18 +647,23 @@ extern "C" int brotli_torch_zopfli_min_len_host(const void* cost, int n,
 
 // The match finder lane by lane: a serial stable sort of each pass's
 // hashed positions by key (the kernel's radix sort in shared memory gives
-// the same order), the same candidates, a backward scan for the byte runs,
-// and the extension rounds in place from the front (position p reads p + s
-// before the round reaches it, so each round reads the last one's values).
+// the same order), the same candidates, then the byte runs and the
+// extension rounds split as match_kernel splits them with `seg` positions
+// a segment: each run ends at the first stop in its segment or the suffix
+// minimum of the segments' first stops after it (the kernel: windows of
+// 32, a ballot each); each round goes tile by tile of `seg` positions from
+// the front, a tile's reads before its writes (the kernel: tiles of
+// EXT_ITEMS positions a thread).  seg = 1 is the serial walk.
 extern "C" int brotli_torch_matches_host(const void* data, const void* n_valid,
                                          void* mlen, void* mdist, int n_lanes,
                                          int n, int st, int max_dist,
-                                         int depth, int hash2) {
-  if (!match_args_ok(n_lanes, n, st, max_dist, depth)) return 1;
+                                         int depth, int hash2, int seg) {
+  if (!match_args_ok(n_lanes, n, st, max_dist, depth) || seg <= 0) return 1;
   const MatchKnobs K{st, match_pbits(n / st), max_dist, depth, hash2 != 0};
   const int n2 = n / st;
+  const int nseg = (n + seg - 1) / seg;
   std::vector<u32> key(n2);
-  std::vector<i32> order(n2), d1(n), d7(n), len(n);
+  std::vector<i32> order(n2), d1(n), d7(n), len(n), grown(seg), after(nseg + 1);
   for (int lane = 0; lane < n_lanes; ++lane) {
     const u8* row = (const u8*)data + (i64)lane * (n + MATCH_TAIL);
     auto win = [&](i32 q) {
@@ -700,17 +705,37 @@ extern "C" int brotli_torch_matches_host(const void* data, const void* n_valid,
       }
     }
     std::vector<i32>& dist = d1;
-    for (int p = 0; p < n; ++p) len[p] = len_at(p, dist[p]);
-    i32 run = 0;
-    for (int p = n - 1; p >= 0; --p) {
-      run = (p >= 4 && row[p] == row[p - 4]) ? run + 1 : 0;
-      match_run(run, len[p], dist[p]);
+    auto stops = [&](i32 q) { return q >= n || q < 4 || row[q] != row[q - 4]; };
+    after[nseg] = n;  // the first stop at or after segment v, v = nseg: n
+    for (int v = nseg - 1; v >= 0; --v) {
+      i32 f = n;
+      for (i32 q = v * seg; q < n && q < (v + 1) * seg; ++q)
+        if (stops(q)) {
+          f = q;
+          break;
+        }
+      after[v] = std::min(f, after[v + 1]);
+    }
+    for (int p = 0; p < n; ++p) {
+      const int v = p / seg;
+      i32 stop = after[v + 1];
+      for (i32 q = p; q < n && q < (v + 1) * seg; ++q)
+        if (stops(q)) {
+          stop = q;
+          break;
+        }
+      len[p] = len_at(p, dist[p]);
+      match_run(stop - p, len[p], dist[p]);
     }
     for (i32 s = MATCH_CAP_BYTES; s < match_ext_limit(n); s *= 2)
-      for (int p = 0; p < n; ++p) {
-        const bool in = p + s < n;
-        len[p] = match_extend(s, len[p], dist[p], in ? len[p + s] : 0,
-                              in ? dist[p + s] : 0);
+      for (int t0 = 0; t0 < n; t0 += seg) {
+        const int t1 = std::min(n, t0 + seg);
+        for (int p = t0; p < t1; ++p) {
+          const bool in = p + s < n;
+          grown[p - t0] = match_extend(s, len[p], dist[p], in ? len[p + s] : 0,
+                                       in ? dist[p + s] : 0);
+        }
+        for (int p = t0; p < t1; ++p) len[p] = grown[p - t0];
       }
     const i32 nv = ((const i32*)n_valid)[lane];
     i32* ml = (i32*)mlen + (i64)lane * n;
@@ -725,53 +750,91 @@ extern "C" int brotli_torch_matches_host(const void* data, const void* n_valid,
   return 0;
 }
 
-// The record builder lane by lane: the forward running maximum, the
-// backward suffix minima, and every row from the same functions as the
-// warp of csrc/records.cu.
+// The record builder in the block kernel's order (csrc/records.cu
+// records_kernel), with `segments` runs of REC_ITEMS positions a tile
+// where the kernel has one a thread: the tiles' maxima of copy ends, then
+// tile by tile from the top the runs' maxima, their exclusive running
+// maximum from the tiles' below, the runs' aggregates of the suffix
+// minima, their exclusive suffix minimum from the tile above, and each
+// run's rows.  segments = 1 is the serial walk over runs.
+namespace {
+struct RecHostIn {
+  const u8 *cs_, *lit_, *d_;
+  const i32 *ml_, *md_, *ds_;
+  bool cs(i32 p) const { return p >= 0 && cs_[p]; }
+  bool lit(i32 p) const { return lit_[p]; }
+  i32 byte(i32 p) const { return p >= 0 ? d_[p] : 0; }
+  i32 mlen(i32 p) const { return ml_[p]; }
+  i32 mdist(i32 p) const { return md_[p]; }
+  i32 dshort(i32 p) const { return ds_[p]; }
+};
+struct RecHostKeep {
+  std::vector<RecCopy>& copy;
+  void put(i32 q, const RecCopy& rc) { copy[q] = rc; }
+  RecCopy get(i32 q) const { return copy[q]; }
+};
+struct RecHostOut {
+  i32 *r0, *r1;
+  void row(i32 r, i32 a, i32 b) {
+    r0[r] = a;
+    r1[r] = b;
+  }
+};
+}  // namespace
+
 extern "C" int brotli_torch_records_host(
     const void* data, const void* mlen, const void* mdist, const void* is_cs,
     const void* is_lit, const void* dshort, const void* n_valid,
     const void* tab, void* rec0, void* rec1, void* n_rec, int n_lanes, int n,
-    int dstride, int lit_ctx) {
-  if (n_lanes <= 0 || n <= 0 || dstride < n) return 1;
+    int dstride, int lit_ctx, int segments) {
+  if (n_lanes <= 0 || n <= 0 || dstride < n || segments <= 0) return 1;
   const i32* T = (const i32*)tab;
-  std::vector<i32> ins(n);
+  const i32 tile = segments * REC_ITEMS;
+  const int n_tiles = (n + tile - 1) / tile;
+  std::vector<i32> below(n_tiles), prev(segments);
+  std::vector<u32> starts(segments);
+  std::vector<RecNext> agg(segments), next(segments);
   std::vector<RecCopy> copy(n);
-  std::vector<RecNext> next(n);
+  RecHostKeep keep{copy};
   for (int lane = 0; lane < n_lanes; ++lane) {
     const i64 row = (i64)lane * n, orow = (i64)lane * (n + 1);
-    const u8* d = (const u8*)data + (i64)lane * dstride;
-    const u8* cs = (const u8*)is_cs + row;
-    const u8* lit = (const u8*)is_lit + row;
-    const i32* ml = (const i32*)mlen + row;
-    const i32* md = (const i32*)mdist + row;
-    const i32* ds = (const i32*)dshort + row;
+    const RecHostIn in{(const u8*)is_cs + row, (const u8*)is_lit + row,
+                       (const u8*)data + (i64)lane * dstride,
+                       (const i32*)mlen + row, (const i32*)mdist + row,
+                       (const i32*)dshort + row};
+    RecHostOut out{(i32*)rec0 + orow, (i32*)rec1 + orow};
     const i32 nv = ((const i32*)n_valid)[lane];
-    i32 cm = -1;
-    for (int p = 0; p < n; ++p) {
-      ins[p] = cs[p] ? p - std::max(cm, 0) : 0;
-      if (cs[p]) cm = std::max(cm, p + ml[p]);
+    i32 carry = -1;  // the tiles' maxima, each tile's from those below
+    for (int k = 0; k < n_tiles; ++k) {
+      below[k] = carry;
+      for (i32 p = k * tile; p < n && p < (k + 1) * tile; ++p)
+        if (in.cs(p)) carry = rec_max(carry, p + in.mlen(p));
     }
-    const RecTail tail = rec_tail(T, nv, cm);
-    RecNext nx{REC_BIG, REC_BIG, REC_BIG};
-    for (int q = n - 1; q >= 0; --q) {
-      copy[q] = rec_copy(T, cs[q], ins[q], ml[q], md[q], ds[q]);
-      nx = rec_next_min(rec_next_of(cs[q], q, copy[q]), nx);
-      next[q] = nx;
-    }
-    i32* r0 = (i32*)rec0 + orow;
-    i32* r1 = (i32*)rec1 + orow;
-    rec_first(next[0], nv, tail, r0[0], r1[0]);
-    for (int p = 0; p < n; ++p) {
-      const bool first = p == 0;
-      rec_row(p >= 2 && cs[p - 2], first ? rec_no_copy() : copy[p - 1],
-              first ? next[0] : next[p - 1], lit[p],
-              rec_lit_code(T, lit_ctx != 0, d[p], p >= 1 ? d[p - 1] : 0,
-                           p >= 2 ? d[p - 2] : 0),
-              tail, r0[p + 1], r1[p + 1]);
-    }
+    const RecTail tail = rec_tail(T, nv, carry);
+    RecNext above{REC_BIG, REC_BIG, REC_BIG};
     i32 count = 0;
-    for (int r = 0; r <= n; ++r) count += r0[r] != 0;
+    for (int k = n_tiles - 1; k >= 0; --k) {
+      const i32 base = k * tile;
+      i32 m = below[k];
+      for (int t = 0; t < segments; ++t) {
+        const i32 lo = base + t * REC_ITEMS;
+        starts[t] = rec_run_starts(in, lo, n);
+        prev[t] = m;
+        m = rec_max(m, rec_run_max(in, lo, starts[t], -1));
+      }
+      for (int t = 0; t < segments; ++t)
+        agg[t] = rec_run_copies(T, in, base + t * REC_ITEMS, starts[t],
+                                prev[t], keep);
+      RecNext s = above;
+      for (int t = segments - 1; t >= 0; --t) {
+        next[t] = s;
+        s = rec_next_min(agg[t], s);
+      }
+      above = s;
+      for (int t = 0; t < segments; ++t)
+        count += rec_run_rows(T, in, base + t * REC_ITEMS, n, starts[t],
+                              next[t], tail, lit_ctx != 0, nv, keep, out);
+    }
     ((i32*)n_rec)[lane] = count;
   }
   return 0;

@@ -3,6 +3,12 @@
 // one row.  The CUDA kernel (csrc/records.cu) and its host build
 // (csrc/host_shim.cpp) run these same functions over a lane's two scans.
 //
+// The block kernel and the host form split a lane into runs of REC_ITEMS
+// positions (a thread's share of a tile) and walk each run with
+// rec_run_max, rec_run_next and rec_run_rows below; the carries between
+// runs are a running maximum and a component-wise minimum, both
+// associative, so any grouping of the runs gives the same bits.
+//
 // The function is brotli_tpu/ops/device_encode.py `build_records` (an XLA
 // stage: no `pallas_call`), as the plain PyTorch version
 // `build_records_ref` in ops/device_encode.py computes it.  Per lane, with
@@ -184,6 +190,108 @@ BROTLI_HD void rec_first(const RecNext& nx0, i32 nv, const RecTail& t,
 // no distance slot).
 BROTLI_HD RecCopy rec_no_copy() {
   return RecCopy{0, 0, 0, false, 0, 0};
+}
+
+// ---------------------------------------------------------------------------
+// A run of REC_ITEMS positions [lo, lo + REC_ITEMS), clipped to the lane's
+// n, read through an accessor `in` with cs(p), lit(p), byte(p), mlen(p),
+// mdist(p) and dshort(p) at absolute positions (cs and byte of p = -1 are
+// false and 0; lit and byte are read up to lo + REC_ITEMS, cs from lo - 1).
+// A run's copy starts keep their copy data through keep.put(q, rc) until
+// the run's rows read it back with keep.get(q).
+// ---------------------------------------------------------------------------
+
+constexpr int REC_ITEMS = 8;
+
+BROTLI_HD i32 rec_max(i32 a, i32 b) { return a > b ? a : b; }
+
+// The run's copy starts, bit k for position lo + k.
+template <class In>
+BROTLI_HD u32 rec_run_starts(const In& in, i32 lo, i32 n) {
+  u32 m = 0;
+#pragma unroll
+  for (int k = 0; k < REC_ITEMS; ++k)
+    if (lo + k < n && in.cs(lo + k)) m |= 1u << k;
+  return m;
+}
+
+BROTLI_HD int rec_lowest(u32 m) {
+#if defined(__CUDA_ARCH__)
+  return __ffs(m) - 1;
+#else
+  return __builtin_ctz(m);
+#endif
+}
+
+// The running maximum of copy ends (p + mlen at copy starts) after the
+// run, from `carry` before it (-1: no copy yet).
+template <class In>
+BROTLI_HD i32 rec_run_max(const In& in, i32 lo, u32 starts, i32 carry) {
+  for (u32 m = starts; m; m &= m - 1) {
+    const i32 p = lo + rec_lowest(m);
+    carry = rec_max(carry, p + in.mlen(p));
+  }
+  return carry;
+}
+
+// Each copy start's codes, its insert length from `prev` (the running
+// maximum of copy ends before lo), kept through keep.put; returns the
+// run's aggregate for the backward scan, the component-wise minimum of the
+// packed payloads (REC_BIG where the run has no copy start).
+template <class In, class Keep>
+BROTLI_HD RecNext rec_run_copies(const i32* tab, const In& in, i32 lo,
+                                 u32 starts, i32 prev, Keep& keep) {
+  RecNext s{REC_BIG, REC_BIG, REC_BIG};
+  for (u32 m = starts; m; m &= m - 1) {
+    const i32 p = lo + rec_lowest(m);
+    const i32 ml = in.mlen(p);
+    const RecCopy rc = rec_copy(tab, true, p - rec_max(prev, 0), ml,
+                                in.mdist(p), in.dshort(p));
+    keep.put(p, rc);
+    s = rec_next_min(s, rec_next_of(true, p, rc));
+    prev = rec_max(prev, p + ml);
+  }
+  return s;
+}
+
+// The rows the run writes, through out.row(r, r0, r1): the row of q + 1
+// for each position q of the run with q + 1 < n, and rows 0 and 1 from
+// the run at 0.  s: the suffix minima past the run (at lo + REC_ITEMS);
+// tail: the lane's tail command.  Returns how many of the rows are not
+// padding.
+template <class In, class Keep, class Out>
+BROTLI_HD i32 rec_run_rows(const i32* tab, const In& in, i32 lo, i32 n,
+                           u32 starts, RecNext s, const RecTail& tail,
+                           bool lit_ctx, i32 nv, const Keep& keep, Out& out) {
+  i32 count = 0;
+#pragma unroll
+  for (int k = REC_ITEMS - 1; k >= 0; --k) {
+    const i32 q = lo + k;
+    if (q >= n) continue;
+    const bool cs = (starts >> k) & 1u;
+    const RecCopy rc = cs ? keep.get(q) : rec_no_copy();
+    s = rec_next_min(rec_next_of(cs, q, rc), s);
+    i32 r0, r1;
+    if (q + 1 < n) {
+      const i32 p = q + 1;
+      rec_row(q >= 1 && in.cs(q - 1), rc, s, in.lit(p),
+              rec_lit_code(tab, lit_ctx, in.byte(p), in.byte(q),
+                           in.byte(q - 1)),
+              tail, r0, r1);
+      out.row(p + 1, r0, r1);
+      count += r0 != 0;
+    }
+    if (q == 0) {
+      rec_row(false, rec_no_copy(), s, in.lit(0),
+              rec_lit_code(tab, lit_ctx, in.byte(0), 0, 0), tail, r0, r1);
+      out.row(1, r0, r1);
+      count += r0 != 0;
+      rec_first(s, nv, tail, r0, r1);
+      out.row(0, r0, r1);
+      count += r0 != 0;
+    }
+  }
+  return count;
 }
 
 }  // namespace brotli_torch

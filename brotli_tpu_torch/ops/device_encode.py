@@ -86,9 +86,13 @@ from .encode_host import (
 KERNEL_LAUNCHES = 0
 SERIAL_PACK_LAUNCHES = 0
 PARSE_LAUNCHES = 0
-# Launches of the match and record kernels, counted the same way.
+# Launches of the match and record kernels, counted the same way, and of
+# their first forms (the first designs, kept to be timed against; no main
+# path launches them).
 MATCH_LAUNCHES = 0
 RECORD_LAUNCHES = 0
+MATCH_DIRECT_LAUNCHES = 0
+RECORD_DIRECT_LAUNCHES = 0
 
 _M32 = 0xFFFFFFFF
 _I32 = torch.int32
@@ -227,46 +231,84 @@ def find_matches(data_u8: torch.Tensor, n_valid: torch.Tensor,
     position, 0 where there is none; see device_encode.find_matches.  N is
     at most CHUNK_N, hash_stride 1 or 2, chain_depth >= 1; anything else
     raises.  CPU tensors take find_matches_ref; CUDA tensors launch
-    csrc/matches.cu, one block per lane."""
+    csrc/matches.cu `match_kernel`, one block per lane."""
     global MATCH_LAUNCHES
-    _check_matches(data_u8, n_valid, hash_stride, max_distance, chain_depth)
-    dev = data_u8.device
-    if dev.type == "cpu":
-        return find_matches_ref(data_u8, n_valid, hash_stride, max_distance,
-                                chain_depth, hash2)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    from ..build import kernels_lib
-
-    out = _alloc_matches(data_u8)
-    with torch.cuda.device(dev):
-        rc = kernels_lib().brotli_torch_matches(
-            *_matches_c_args(data_u8, n_valid, out, hash_stride,
-                             max_distance, chain_depth, hash2),
-            torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"match kernel launch failed: cudaError {rc}")
+    args = (hash_stride, max_distance, chain_depth, hash2)
+    if not _matches_on_card(data_u8, n_valid, *args):
+        return find_matches_ref(data_u8, n_valid, *args)
+    out = _launch_matches("brotli_torch_matches", data_u8, n_valid, args)
     MATCH_LAUNCHES += 1
     return out
 
 
-def match_config(n: int) -> tuple[int, int]:
-    """(threads, dynamic shared bytes) of a block of csrc/matches.cu at
-    N = n: what a launch asks of an SM."""
+def find_matches_direct(data_u8: torch.Tensor, n_valid: torch.Tensor,
+                        hash_stride: int = 1,
+                        max_distance: int | None = None,
+                        chain_depth: int = 2, hash2: bool = False):
+    """find_matches through the first kernel, `match_direct_kernel`, the
+    yardstick the match kernel is timed against; no main path launches it.
+    CPU tensors take find_matches_ref."""
+    global MATCH_DIRECT_LAUNCHES
+    args = (hash_stride, max_distance, chain_depth, hash2)
+    if not _matches_on_card(data_u8, n_valid, *args):
+        return find_matches_ref(data_u8, n_valid, *args)
+    out = _launch_matches("brotli_torch_matches_direct", data_u8, n_valid,
+                          args)
+    MATCH_DIRECT_LAUNCHES += 1
+    return out
+
+
+def _matches_on_card(data_u8, n_valid, *args) -> bool:
+    """False for CPU tensors; True for checked CUDA tensors; raises on
+    another device or on a shape or knob the kernels do not take."""
+    _check_matches(data_u8, n_valid, *args[:3])
+    dev = data_u8.device
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    return True
+
+
+def _launch_matches(entry: str, data_u8, n_valid, args):
+    """One launch of a match kernel's C entry on the current stream; raises
+    when it reports an error."""
+    from ..build import kernels_lib
+
+    dev = data_u8.device
+    out = _alloc_matches(data_u8)
+    with torch.cuda.device(dev):
+        rc = getattr(kernels_lib(), entry)(
+            *_matches_c_args(data_u8, n_valid, out, *args),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{entry} launch failed: cudaError {rc}")
+    return out
+
+
+def match_config(n: int, direct: bool = False) -> tuple[int, int]:
+    """(threads, dynamic shared bytes) of a block of csrc/matches.cu's
+    match_kernel (or, with `direct`, match_direct_kernel) at N = n: what a
+    launch asks of an SM."""
     from ..build import kernels_lib
 
     out = (ctypes.c_int * 2)()
-    if kernels_lib().brotli_torch_matches_config(n, ctypes.addressof(out)):
+    entry = ("brotli_torch_matches_direct_config" if direct
+             else "brotli_torch_matches_config")
+    if getattr(kernels_lib(), entry)(n, ctypes.addressof(out)):
         raise ValueError(f"no match kernel launch at N={n}")
     return out[0], out[1]
 
 
 def find_matches_host(data_u8: torch.Tensor, n_valid: torch.Tensor,
                       hash_stride: int = 1, max_distance: int | None = None,
-                      chain_depth: int = 2, hash2: bool = False):
+                      chain_depth: int = 2, hash2: bool = False,
+                      seg: int = 1):
     """csrc/matches.cuh's code built for the CPU (build.host_lib), with a
-    serial stable sort where the kernel sorts in shared memory: for the
-    tests, which hold it against find_matches_ref and JAX."""
+    serial stable sort where the kernel sorts in shared memory, and the
+    byte runs and extension rounds split into segments of `seg` positions
+    as match_kernel splits them: for the tests, which hold it against
+    find_matches_ref and JAX."""
     from ..build import host_lib
 
     _check_matches(data_u8, n_valid, hash_stride, max_distance, chain_depth)
@@ -275,7 +317,7 @@ def find_matches_host(data_u8: torch.Tensor, n_valid: torch.Tensor,
     out = _alloc_matches(data_u8)
     if host_lib().brotli_torch_matches_host(*_matches_c_args(
             data_u8, n_valid, out, hash_stride, max_distance, chain_depth,
-            hash2)):
+            hash2), seg):
         raise ValueError("host shim refused the batch")
     return out
 
@@ -595,35 +637,77 @@ def build_records(data_u8, mlen, mdist, is_cs, is_lit, dcode_short, n_valid,
     format and the placement.  data_u8 (B, >= N) uint8; mlen, mdist,
     dcode_short (B, N) int32; is_cs, is_lit (B, N) bool; n_valid (B,)
     int32.  CPU tensors take build_records_ref; CUDA tensors launch
-    csrc/records.cu, one warp per lane."""
+    csrc/records.cu `records_kernel`, one block per lane."""
     global RECORD_LAUNCHES
-    dev = mlen.device
-    _check_records(data_u8, mlen, mdist, is_cs, is_lit, dcode_short, n_valid,
-                   contiguous=dev.type != "cpu")
-    if dev.type == "cpu":
-        return build_records_ref(data_u8, mlen, mdist, is_cs, is_lit,
-                                 dcode_short, n_valid, lit_ctx)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    from ..build import kernels_lib
-
-    out = _alloc_records(mlen)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    with torch.cuda.device(dev):
-        rc = kernels_lib().brotli_torch_records(
-            *_records_c_args(data_u8, mlen, mdist, is_cs, is_lit,
-                             dcode_short, n_valid, out, lit_ctx),
-            sms, torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"record kernel launch failed: cudaError {rc}")
+    ins = (data_u8, mlen, mdist, is_cs, is_lit, dcode_short, n_valid)
+    if not _records_on_card(*ins):
+        return build_records_ref(*ins, lit_ctx)
+    out = _launch_records("brotli_torch_records", ins, lit_ctx)
     RECORD_LAUNCHES += 1
     return out
 
 
+def build_records_direct(data_u8, mlen, mdist, is_cs, is_lit, dcode_short,
+                         n_valid, lit_ctx: bool = False):
+    """build_records through the first kernel, `records_direct_kernel` (a
+    warp a lane), the yardstick the record kernel is timed against; no main
+    path launches it.  CPU tensors take build_records_ref."""
+    global RECORD_DIRECT_LAUNCHES
+    ins = (data_u8, mlen, mdist, is_cs, is_lit, dcode_short, n_valid)
+    if not _records_on_card(*ins):
+        return build_records_ref(*ins, lit_ctx)
+    out = _launch_records("brotli_torch_records_direct", ins, lit_ctx)
+    RECORD_DIRECT_LAUNCHES += 1
+    return out
+
+
+def _records_on_card(*ins) -> bool:
+    """False for CPU tensors (strided ones too); True for checked
+    contiguous CUDA tensors; raises on another device or shape."""
+    dev = ins[1].device
+    _check_records(*ins, contiguous=dev.type != "cpu")
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    return True
+
+
+def _launch_records(entry: str, ins, lit_ctx: bool):
+    """One launch of a record kernel's C entry on the current stream, its
+    grid sized from the card's SM count; raises when it reports an
+    error."""
+    from ..build import kernels_lib
+
+    dev = ins[1].device
+    out = _alloc_records(ins[1])
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    with torch.cuda.device(dev):
+        rc = getattr(kernels_lib(), entry)(
+            *_records_c_args(*ins, out, lit_ctx), sms,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{entry} launch failed: cudaError {rc}")
+    return out
+
+
+def records_config(n: int) -> tuple[int, int, int]:
+    """(threads, dynamic shared bytes, blocks an SM) of csrc/records.cu's
+    records_kernel at N = n on this card."""
+    from ..build import kernels_lib
+
+    out = (ctypes.c_int * 3)()
+    if kernels_lib().brotli_torch_records_config(n, ctypes.addressof(out)):
+        raise ValueError(f"no record kernel launch at N={n}")
+    return out[0], out[1], out[2]
+
+
 def build_records_host(data_u8, mlen, mdist, is_cs, is_lit, dcode_short,
-                       n_valid, lit_ctx: bool = False):
-    """csrc/records.cuh's code built for the CPU (build.host_lib): for the
-    tests, which hold it against build_records_ref and JAX."""
+                       n_valid, lit_ctx: bool = False, segments: int = 1):
+    """csrc/records.cuh's run walks built for the CPU (build.host_lib), in
+    the block kernel's order with `segments` runs a tile where the kernel
+    has one a thread (REC_THREADS): for the tests, which hold it against
+    build_records_ref and JAX."""
     from ..build import host_lib
 
     _check_records(data_u8, mlen, mdist, is_cs, is_lit, dcode_short, n_valid)
@@ -632,7 +716,7 @@ def build_records_host(data_u8, mlen, mdist, is_cs, is_lit, dcode_short,
     out = _alloc_records(mlen)
     if host_lib().brotli_torch_records_host(*_records_c_args(
             data_u8, mlen, mdist, is_cs, is_lit, dcode_short, n_valid, out,
-            lit_ctx)):
+            lit_ctx), segments):
         raise ValueError("host shim refused the batch")
     return out
 

@@ -49,11 +49,13 @@ Phases, in order; any failure raises and the exit code is non-zero:
    of three match-finder settings, then the main encode's shape and knobs
    once, with the kernel's time;
 9. match and record kernels == plain versions on the card, bit for bit
-   (mlen, mdist; rec0, rec1, n_records): 1024 x 2 KB under each match
-   setting of phase 8, hash2 and hash_stride 2 (records with and without
-   literal contexts, on the parse kernel's output), then the main
-   encode's shape once, each kernel timed beside its plain version and its
-   bound, and both again at the v3 cell's 1024 x 4 KB;
+   (mlen, mdist; rec0, rec1, n_records), the main path's (match_kernel,
+   records_kernel) and their direct forms (the first designs): under each
+   match setting of phase 8, hash2 and hash_stride 2 (records with and
+   without literal contexts, on the parse kernel's output), at 1024 x 2
+   KB, at the main encode's 1024 x 32 KB and at the v3 cell's 1024 x 4 KB;
+   at the last two, both forms of each kernel timed in turns (direct, new,
+   new, direct) beside the plain version and the bound;
 10. enc times -- the segmented and the serial pack kernel on the main
    path's records in turns, and the plain version against the main path's
    kernel output and the serial kernel's;
@@ -425,7 +427,8 @@ def phase_build(tag: str) -> None:
                                   "decode3_direct_kernel", "decode3_kernel",
                                   "resolve_direct_kernel", "resolve_kernel",
                                   "zopfli_direct_kernel", "zopfli_kernel",
-                                  "match_kernel", "records_kernel")
+                                  "match_direct_kernel", "match_kernel",
+                                  "records_direct_kernel", "records_kernel")
                       if k in name), None)
         if short:
             print(f"[build] {short}: {'; '.join(lines)}")
@@ -899,8 +902,11 @@ def encode_counted(data: bytes, **kw) -> tuple[list[bytes], float, dict]:
     E.PARSE_LAUNCHES = 0
     E.MATCH_LAUNCHES = 0
     E.RECORD_LAUNCHES = 0
+    E.MATCH_DIRECT_LAUNCHES = E.RECORD_DIRECT_LAUNCHES = 0
     streams, phases, summary, state = profile_device_encode(
         data, "cuda", chunk_size=ENC_CHUNK, **kw)
+    check(E.MATCH_DIRECT_LAUNCHES == E.RECORD_DIRECT_LAUNCHES == 0,
+          "the encode launched a direct match or record kernel")
     seen = {"launches": E.KERNEL_LAUNCHES,
             "parse_launches": E.PARSE_LAUNCHES,
             "match_launches": E.MATCH_LAUNCHES,
@@ -1144,103 +1150,104 @@ def records_bound(mlen) -> tuple[float, str]:
     return bound_ms(B * N * 15 + 4 * B + 4 * 1072 + 8 * B * (N + 1) + 4 * B)
 
 
-def records_pair(data_t, n_valid, mkw: dict, lit_ctx: bool, timed: bool):
-    """The match kernel's output parsed by the parse kernel, then the
-    record kernel against build_records_ref on it; with `timed`, both
-    timed.  Returns (max_abs_err, kernel ms, plain ms, bound)."""
+def match_forms(data_t, n_valid, mkw: dict):
+    """match_kernel and match_direct_kernel against find_matches_ref on
+    the same inputs; returns (max_abs_err over both, the plain output)."""
     from brotli_tpu_torch.ops import device_encode as E
 
-    mlen, mdist = E.find_matches(data_t, n_valid, **mkw)
-    ins = (data_t, mlen, mdist, *E.greedy_parse(mlen, mdist, n_valid),
-           n_valid)
-    out = {}
-    if timed:
-        ms = device_ms(lambda: out.__setitem__(
-            "k", E.build_records(*ins, lit_ctx=lit_ctx)))
-        plain = plain_ms(lambda: out.__setitem__(
-            "p", E.build_records_ref(*ins, lit_ctx=lit_ctx)))
-    else:
-        out["k"] = E.build_records(*ins, lit_ctx=lit_ctx)
-        out["p"] = E.build_records_ref(*ins, lit_ctx=lit_ctx)
-        ms = plain = None
-    torch.cuda.synchronize()
-    return max_abs_err(out["k"], out["p"]), ms, plain, records_bound(mlen)
+    ref = E.find_matches_ref(data_t, n_valid, **mkw)
+    err = max(max_abs_err(E.find_matches(data_t, n_valid, **mkw), ref),
+              max_abs_err(E.find_matches_direct(data_t, n_valid, **mkw), ref))
+    return err, ref
 
 
-def matches_pair(data_t, n_valid, mkw: dict, timed: bool):
-    """The match kernel against find_matches_ref; with `timed`, both timed.
-    Returns (max_abs_err, kernel ms, plain ms, bound, matches found)."""
+def record_forms(ins, lit_ctx: bool) -> int:
+    """records_kernel and records_direct_kernel against build_records_ref
+    on the same inputs: max_abs_err over both."""
     from brotli_tpu_torch.ops import device_encode as E
 
-    out = {}
-    if timed:
-        ms = device_ms(lambda: out.__setitem__(
-            "k", E.find_matches(data_t, n_valid, **mkw)))
-        plain = plain_ms(lambda: out.__setitem__(
-            "p", E.find_matches_ref(data_t, n_valid, **mkw)))
-    else:
-        out["k"] = E.find_matches(data_t, n_valid, **mkw)
-        out["p"] = E.find_matches_ref(data_t, n_valid, **mkw)
-        ms = plain = None
-    torch.cuda.synchronize()
-    return (max_abs_err(out["k"], out["p"]), ms, plain,
-            match_bound(data_t, n_valid), int((out["k"][0] > 0).sum()))
+    ref = E.build_records_ref(*ins, lit_ctx=lit_ctx)
+    return max(max_abs_err(E.build_records(*ins, lit_ctx=lit_ctx), ref),
+               max_abs_err(E.build_records_direct(*ins, lit_ctx=lit_ctx), ref))
 
 
 def phase_match_record_kernels(enc_data: bytes, card_str: str) -> dict:
-    """find_matches' and build_records' kernels against their plain
-    versions on CUDA tensors: 1024 x 2 KB under every match setting of
-    MATCH_SETS (records with and without literal contexts), then the main
-    encode's shape and knobs, timed, and the v3 cell's 1024 x 4 KB."""
+    """find_matches' and build_records' kernels (match_kernel,
+    records_kernel) and their direct forms (the first designs) against the
+    plain versions on CUDA tensors, under every match setting of MATCH_SETS
+    (records with and without literal contexts, on the parse kernel's
+    output), at 1024 x 2 KB, at the main encode's 1024 x 32 KB and at the
+    v3 cell's 1024 x 4 KB; at the last two, both forms of each kernel timed
+    in turns (direct, new, new, direct) beside the plain version (one run)
+    and the bound."""
     from brotli_tpu_torch.ops import device_encode as E
 
     cuda = torch.device("cuda")
-    data_t, _, n_valid = E.stage_input(corpus(1024 * 2048), 2048, cuda)
     worst = {"matches": 0, "records": 0}
-    for mname, mkw in MATCH_SETS.items():
-        err, _, _, _, found = matches_pair(data_t, n_valid, mkw, False)
-        rerr = [records_pair(data_t, n_valid, mkw, lit_ctx, False)[0]
-                for lit_ctx in (False, True)]
-        check(err == 0, f"match kernel != plain version ({mname}): {err}")
-        check(rerr == [0, 0],
-              f"record kernel != plain version ({mname}): {rerr}")
-        worst["matches"] = max(worst["matches"], err)
-        worst["records"] = max(worst["records"], *rerr)
-        print(f"[matches kernel==plain] 1024 lanes x 2 KB, {mname}: "
-              f"max_abs_err {err} over mlen, mdist ({found} matches; exact "
-              "equality required)")
-        print(f"[records kernel==plain] 1024 lanes x 2 KB, matches {mname}, "
-              f"lit_ctx False / True: max_abs_err {rerr[0]} / {rerr[1]} over "
-              "rec0, rec1, n_records (exact equality required)")
     res = {}
-    for tag, chunk, mkw in (("main", ENC_CHUNK, {}),
-                            ("v3", V3_BENCH["chunk_size"], V3_MATCH)):
-        data = enc_data[: 1024 * chunk]
-        data_t, _, n_valid = E.stage_input(data, chunk, cuda)
-        err, ms, plain, bound, found = matches_pair(data_t, n_valid, mkw,
-                                                    True)
-        rerr, rms, rplain, rbound = records_pair(data_t, n_valid, mkw,
-                                                 tag == "v3", True)
-        check(err == 0 and rerr == 0, f"match / record kernel != plain "
-              f"version at 1024 x {chunk} B: {err}, {rerr}")
+    for tag, chunk, data in (("2k", 2048, corpus(1024 * 2048)),
+                             ("main", ENC_CHUNK, enc_data),
+                             ("v3", V3_BENCH["chunk_size"], enc_data)):
+        data_t, _, n_valid = E.stage_input(data[: 1024 * chunk], chunk, cuda)
+        for mname, mkw in MATCH_SETS.items():
+            err, (mlen, mdist) = match_forms(data_t, n_valid, mkw)
+            ins = (data_t, mlen, mdist, *E.greedy_parse(mlen, mdist, n_valid),
+                   n_valid)
+            rerr = [record_forms(ins, lit_ctx) for lit_ctx in (False, True)]
+            torch.cuda.synchronize()
+            check(err == 0, f"match kernels != plain version ({mname}, "
+                  f"1024 x {chunk} B): {err}")
+            check(rerr == [0, 0], f"record kernels != plain version "
+                  f"({mname}, 1024 x {chunk} B): {rerr}")
+            worst["matches"] = max(worst["matches"], err)
+            worst["records"] = max(worst["records"], *rerr)
+            print(f"[matches kernel==plain] 1024 lanes x {chunk} B, {mname}: "
+                  f"max_abs_err {err} over mlen, mdist, match_kernel and "
+                  f"match_direct_kernel ({int((mlen > 0).sum())} matches; "
+                  "exact equality required)")
+            print(f"[records kernel==plain] 1024 lanes x {chunk} B, matches "
+                  f"{mname}, lit_ctx False / True: max_abs_err {rerr[0]} / "
+                  f"{rerr[1]} over rec0, rec1, n_records, records_kernel and "
+                  "records_direct_kernel (exact equality required)")
+        if tag == "2k":
+            continue
+        mkw, lit_ctx = ({}, False) if tag == "main" else (V3_MATCH, True)
+        out = {}
+        mt = in_turns(lambda: E.find_matches(data_t, n_valid, **mkw),
+                      lambda: E.find_matches_direct(data_t, n_valid, **mkw))
+        plain = plain_ms(lambda: out.__setitem__(
+            "m", E.find_matches_ref(data_t, n_valid, **mkw)))
+        mlen, mdist = out["m"]
+        ins = (data_t, mlen, mdist, *E.greedy_parse(mlen, mdist, n_valid),
+               n_valid)
+        rt = in_turns(lambda: E.build_records(*ins, lit_ctx=lit_ctx),
+                      lambda: E.build_records_direct(*ins, lit_ctx=lit_ctx))
+        rplain = plain_ms(lambda: out.__setitem__(
+            "r", E.build_records_ref(*ins, lit_ctx=lit_ctx)))
+        bound, rbound = match_bound(data_t, n_valid), records_bound(mlen)
         threads, smem = E.match_config(chunk)
+        dthreads, dsmem = E.match_config(chunk, direct=True)
+        rthreads, rsmem, rper_sm = E.records_config(chunk)
         knobs = mkw or "default knobs"
-        print(f"[matches kernel==plain] 1024 lanes x {chunk} B, {knobs}: "
-              f"max_abs_err {err} ({found} matches); records (lit_ctx "
-              f"{tag == 'v3'}) max_abs_err {rerr}")
-        print(f"[enc times] {card_str}: match kernel {ms:.4f} ms per 1024 x "
-              f"{chunk} B (time_device_fn: CUDA events, best of 3 windows of "
-              f"5; {threads} threads and {smem} B dynamic shared memory a "
-              f"block, a block a lane); plain find_matches_ref {plain:.3f} "
-              f"ms (CUDA events, one run); bound {bound[0]:.6f} ms "
-              f"({bound[1]}), {100 * bound[0] / ms:.2f}% of it")
-        print(f"[enc times] {card_str}: record kernel {rms:.4f} ms per 1024 "
-              f"x {chunk} B (the same timer; a warp a lane); plain "
-              f"build_records_ref {rplain:.3f} ms (one run); bound "
-              f"{rbound[0]:.6f} ms ({rbound[1]}), "
-              f"{100 * rbound[0] / rms:.2f}% of it")
-        res[tag] = {"ms": ms, "plain_ms": plain, "bound": bound,
-                    "rms": rms, "rplain_ms": rplain, "rbound": rbound}
+        print(f"[enc times] {card_str}: match kernel at 1024 x {chunk} B, "
+              f"{knobs}: {turns_str(mt)} (time_device_fn: CUDA events, best "
+              f"of 3 windows of 5 each); match_kernel {threads} threads, "
+              f"{smem} B dynamic shared memory a block, a block a lane "
+              f"(direct {dthreads}, {dsmem} B); plain find_matches_ref "
+              f"{plain:.3f} ms (CUDA events, one run); bound "
+              f"{bound[0]:.6f} ms ({bound[1]}), {100 * bound[0] / mt['new']:.2f}"
+              f"% of it (direct {100 * bound[0] / mt['old']:.2f}%)")
+        print(f"[enc times] {card_str}: record kernel at 1024 x {chunk} B, "
+              f"lit_ctx {lit_ctx}: {turns_str(rt)} (the same timer); "
+              f"records_kernel {rthreads} threads a lane, {rsmem} B dynamic "
+              f"shared memory, {rper_sm} blocks an SM, a persistent grid "
+              f"(direct: a warp a lane); plain build_records_ref "
+              f"{rplain:.3f} ms (one run); bound {rbound[0]:.6f} ms "
+              f"({rbound[1]}), {100 * rbound[0] / rt['new']:.2f}% of it "
+              f"(direct {100 * rbound[0] / rt['old']:.2f}%)")
+        res[tag] = {"ms": mt["new"], "direct_ms": mt["old"], "plain_ms": plain,
+                    "bound": bound, "rms": rt["new"], "rdirect_ms": rt["old"],
+                    "rplain_ms": rplain, "rbound": rbound}
     return {"match_err": worst["matches"], "record_err": worst["records"],
             **res}
 
@@ -1907,7 +1914,8 @@ def zero_launches() -> None:
                        (D3, ("KERNEL_LAUNCHES", "DIRECT_LAUNCHES")),
                        (E, ("KERNEL_LAUNCHES", "PARSE_LAUNCHES",
                             "SERIAL_PACK_LAUNCHES", "MATCH_LAUNCHES",
-                            "RECORD_LAUNCHES")),
+                            "RECORD_LAUNCHES", "MATCH_DIRECT_LAUNCHES",
+                            "RECORD_DIRECT_LAUNCHES")),
                        (Z, ("KERNEL_LAUNCHES", "DIRECT_LAUNCHES"))):
         for name in names:
             setattr(mod, name, 0)
@@ -1921,7 +1929,8 @@ def no_direct_launches(what: str) -> None:
     from brotli_tpu_torch.ops import resolve as R
 
     check(D.DIRECT_LAUNCHES == R.DIRECT_LAUNCHES == D3.DIRECT_LAUNCHES
-          == E.SERIAL_PACK_LAUNCHES == Z.DIRECT_LAUNCHES == 0,
+          == E.SERIAL_PACK_LAUNCHES == Z.DIRECT_LAUNCHES
+          == E.MATCH_DIRECT_LAUNCHES == E.RECORD_DIRECT_LAUNCHES == 0,
           f"{what} launched a direct or serial kernel")
 
 
@@ -2587,13 +2596,16 @@ def main() -> int:
          # launches on [v3 block types], counted from 0
          "block_types_launches": bt_launches},
         # ms, plain_ms and bound at the main encode's 1024 x 32 KB; the
-        # v3 cell's 1024 x 4 KB beside them; launches on [enc bench-config]
-        # and [v3 main] (6 encodes), each counted from 0
+        # v3 cell's 1024 x 4 KB beside them; direct_ms: the first design in
+        # turns with the new one; launches on [enc bench-config] and [v3
+        # main] (6 encodes), each counted from 0
         {**row("find_matches", "matches.cu",
                "brotli_tpu/ops/device_encode.py:157", enc_launches["matches"],
                mr["match_err"], mr["main"]["ms"], mr["main"]["plain_ms"],
                mr["main"]["bound"]),
-         "ms_4k": mr["v3"]["ms"], "plain_ms_4k": mr["v3"]["plain_ms"],
+         "direct_ms": mr["main"]["direct_ms"],
+         "ms_4k": mr["v3"]["ms"], "direct_ms_4k": mr["v3"]["direct_ms"],
+         "plain_ms_4k": mr["v3"]["plain_ms"],
          "bound_ms_4k": mr["v3"]["bound"][0],
          "bench_launches": bench_launches["matches"],
          "v3_launches": v3_enc_launches["matches"]},
@@ -2601,7 +2613,9 @@ def main() -> int:
                "brotli_tpu/ops/device_encode.py:424", enc_launches["records"],
                mr["record_err"], mr["main"]["rms"], mr["main"]["rplain_ms"],
                mr["main"]["rbound"]),
-         "ms_4k": mr["v3"]["rms"], "plain_ms_4k": mr["v3"]["rplain_ms"],
+         "direct_ms": mr["main"]["rdirect_ms"],
+         "ms_4k": mr["v3"]["rms"], "direct_ms_4k": mr["v3"]["rdirect_ms"],
+         "plain_ms_4k": mr["v3"]["rplain_ms"],
          "bound_ms_4k": mr["v3"]["rbound"][0],
          "bench_launches": bench_launches["records"],
          "v3_launches": v3_enc_launches["records"]},

@@ -211,27 +211,37 @@ def _card_or_skip():
 
 @pytest.mark.cuda
 def test_match_kernel_matches_plain_on_card():
-    """csrc/matches.cu == find_matches_ref on CUDA tensors, every size and
-    knob set above and 32 KB lanes."""
+    """csrc/matches.cu's match_kernel and match_direct_kernel ==
+    find_matches_ref on CUDA tensors, every size and knob set above and 32
+    KB lanes."""
     _card_or_skip()
     for n in SIZES + [32768]:
         arr, nv = batch(n)
         data, n_valid = _t(arr).cuda(), _t(nv).cuda()
         for name, kw in KNOBS.items():
-            before = TE.MATCH_LAUNCHES
+            before = TE.MATCH_LAUNCHES, TE.MATCH_DIRECT_LAUNCHES
             ker = TE.find_matches(data, n_valid, *_args(kw))
-            assert TE.MATCH_LAUNCHES == before + 1
-            _equal(ker, TE.find_matches_ref(data, n_valid, *_args(kw)))
+            direct = TE.find_matches_direct(data, n_valid, *_args(kw))
+            assert (TE.MATCH_LAUNCHES, TE.MATCH_DIRECT_LAUNCHES) == (
+                before[0] + 1, before[1] + 1)
+            ref = TE.find_matches_ref(data, n_valid, *_args(kw))
+            _equal(ker, ref)
+            _equal(direct, ref)
 
 
 @pytest.mark.cuda
 def test_record_kernel_matches_plain_on_card():
-    """csrc/records.cu == build_records_ref on CUDA tensors."""
+    """csrc/records.cu's records_kernel and records_direct_kernel ==
+    build_records_ref on CUDA tensors."""
     _card_or_skip()
     for n in SIZES:
         ins = [t.cuda() for t in _records_inputs(n)]
         for lit_ctx in (False, True):
-            before = TE.RECORD_LAUNCHES
+            before = TE.RECORD_LAUNCHES, TE.RECORD_DIRECT_LAUNCHES
             ker = TE.build_records(*ins, lit_ctx=lit_ctx)
-            assert TE.RECORD_LAUNCHES == before + 1
-            _equal(ker, TE.build_records_ref(*ins, lit_ctx=lit_ctx))
+            direct = TE.build_records_direct(*ins, lit_ctx=lit_ctx)
+            assert (TE.RECORD_LAUNCHES, TE.RECORD_DIRECT_LAUNCHES) == (
+                before[0] + 1, before[1] + 1)
+            ref = TE.build_records_ref(*ins, lit_ctx=lit_ctx)
+            _equal(ker, ref)
+            _equal(direct, ref)
