@@ -167,6 +167,8 @@ def kernels_lib() -> ctypes.CDLL:
             "brotli_torch_pack": _PACK_ARGS + [_P],
             "brotli_torch_pack_serial": _PACK_SERIAL_ARGS + [_P],
             "brotli_torch_parse": _PARSE_ARGS + [_P],
+            "brotli_torch_parse_direct": _PARSE_ARGS + [_P],
+            "brotli_torch_parse_config": [_P],
             "brotli_torch_matches": _MATCHES_ARGS + [_P],
             "brotli_torch_matches_config": [_I, _P],
             "brotli_torch_matches_direct": _MATCHES_ARGS + [_P],
@@ -200,7 +202,9 @@ def host_lib() -> ctypes.CDLL:
             "brotli_torch_resolve_direct_host": _RESOLVE_DIRECT_ARGS,
             "brotli_torch_pack_host": _PACK_ARGS,
             "brotli_torch_pack_serial_host": _PACK_SERIAL_ARGS,
-            "brotli_torch_parse_host": _PARSE_ARGS,
+            "brotli_torch_parse_host": _PARSE_ARGS + [_I, _I],  # + tile, seg
+            "brotli_torch_parse_direct_host": _PARSE_ARGS,
+            "brotli_torch_parse_ring_host": [_P, _I, _P, _I, _I, _I],
             "brotli_torch_matches_host": _MATCHES_ARGS + [_I],  # + seg
             "brotli_torch_records_host": _RECORDS_ARGS + [_I],  # + segments
             "brotli_torch_zopfli_host": _ZOPFLI_ARGS,

@@ -13,6 +13,7 @@
 
 namespace brotli_torch {
 
+using i8 = int8_t;
 using u8 = uint8_t;
 using u16 = uint16_t;
 using u32 = uint32_t;

@@ -360,13 +360,12 @@ static void probe_v2_host(const i32* a, i32* carry, u32* staging, int blocks,
   }
 }
 
-// The warp of csrc/parse.cu is a loop here: the gate for each position of
-// a window into bit masks, then the same window walk.
-extern "C" int brotli_torch_parse_host(const void* mlen, const void* mdist,
-                                       const void* n_valid, void* is_cs,
-                                       void* is_lit, void* dcode, int n_lanes,
-                                       int n, int lazy0, int lazy1,
-                                       int min_gate, int sms) {
+// The warp of parse_direct_kernel is a loop here: the gate for each
+// position of a window into bit masks, then the same window walk.
+extern "C" int brotli_torch_parse_direct_host(
+    const void* mlen, const void* mdist, const void* n_valid, void* is_cs,
+    void* is_lit, void* dcode, int n_lanes, int n, int lazy0, int lazy1,
+    int min_gate, int sms) {
   (void)sms;
   if (n_lanes <= 0 || n <= 0) return 1;
   const ParseKnobs K{lazy0, lazy1, min_gate};
@@ -405,6 +404,134 @@ extern "C" int brotli_torch_parse_host(const void* mlen, const void* mdist,
       }
     }
   }
+  return 0;
+}
+
+// The short codes of `cnt` copies at distances dist[0..cnt), the ring
+// carried in and out: parse_kernel's phase 4 in chunks of nt copies, a
+// copy a thread, the ballot prefix count a loop.  pushed has 4 + cnt
+// slots.
+static void parse_codes_host(const i32* dist, i32 cnt, i32* ring, i32* pushed,
+                             i32* codes, int nt) {
+  for (int r = 0; r < 4; ++r) pushed[3 - r] = ring[r];
+  std::vector<i32> pj(nt);
+  i32 total = 0;
+  for (i32 c0 = 0; c0 < cnt; c0 += nt) {
+    const i32 hi = std::min(cnt, c0 + nt);
+    for (i32 j = c0; j < hi; ++j) {  // the flags and their prefix count
+      pj[j - c0] = total;
+      if (parse_pushes(dist[j], j ? dist[j - 1] : ring[0])) ++total;
+    }
+    for (i32 j = c0; j < hi; ++j)
+      if (parse_pushes(dist[j], j ? dist[j - 1] : ring[0]))
+        pushed[4 + pj[j - c0]] = dist[j];
+    for (i32 j = c0; j < hi; ++j)
+      codes[j] = parse_code(pushed + 3 + pj[j - c0], dist[j]);
+  }
+  if (cnt)
+    for (int r = 0; r < 4; ++r) ring[r] = pushed[3 + total - r];
+}
+
+// parse_kernel's block on the host, a lane at a time: tiles of `tile`
+// positions (a multiple of 32 up to PARSE_TILE) and speculation segments of
+// `seg` (a power of two from 32 up to the tile; the card's are PARSE_TILE
+// and PARSE_SEG), in the kernel's order and buffers: tile 0 through phases
+// 0-2, then for each tile k phases 3-4 of tile k, 0-2 of tile k + 1 and
+// 5-6 of tile k; the threads of warp 0, of the gate warps and of the block
+// as loops.
+extern "C" int brotli_torch_parse_host(const void* mlen, const void* mdist,
+                                       const void* n_valid, void* is_cs,
+                                       void* is_lit, void* dcode, int n_lanes,
+                                       int n, int lazy0, int lazy1,
+                                       int min_gate, int sms, int tile,
+                                       int seg) {
+  (void)sms;
+  if (n_lanes <= 0 || n <= 0 || tile < 32 || tile > PARSE_TILE || tile % 32 ||
+      seg < 32 || seg > tile || (seg & (seg - 1)))
+    return 1;
+  const int seg_log = __builtin_ctz((unsigned)seg);
+  const ParseKnobs K{lazy0, lazy1, min_gate};
+  std::vector<ParseTile> mem(1);
+  ParseTile& m = mem[0];
+  std::vector<i32> dist(tile), codes(tile);
+  for (int lane = 0; lane < n_lanes; ++lane) {
+    const i64 row = (i64)lane * n;
+    const i32* ml_g = (const i32*)mlen + row;
+    const i32* md_g = (const i32*)mdist + row;
+    const i32 nv = ((const i32*)n_valid)[lane];
+    const int n_tiles = (n + tile - 1) / tile;
+    auto ctx = [&](int k) {
+      return parse_tile_ctx(K, n, nv, tile, seg_log, k);
+    };
+    // 0-2: stage, gate (four positions a thread) and succ
+    auto gate = [&](const ParseTileCtx& c) {
+      const int len = std::min(tile + PARSE_HALO, n - c.base);
+      std::copy(ml_g + c.base, ml_g + c.base + len, m.ml[c.buf]);
+      std::copy(md_g + c.base, md_g + c.base + len, m.md[c.buf]);
+      m.nz[c.buf] = 0;
+      for (int w = 0; w < c.nw; ++w) {
+        u32 word = 0;
+        for (int q = 0; q < 8; ++q)
+          word |= parse_tile_take4(m, c, (w << 5) + 4 * q) << (4 * q);
+        m.take[c.buf][w] = word;
+        m.nz[c.buf] |= (u32)(word != 0) << w;
+      }
+      for (int t = 0; t < PARSE_GATE_THREADS; ++t)
+        parse_tile_succ<PARSE_GATE_THREADS>(m, c, t);
+    };
+    i64 front = 0;
+    i32 ring[4] = {4, 11, 15, 16};
+    gate(ctx(0));
+    for (int k = 0; k < n_tiles; ++k) {
+      const ParseTileCtx c = ctx(k);
+      // 3-4: the speculative walks, the resolution, the list, the words
+      for (int g = 0; g << seg_log < c.tn; ++g) parse_tile_spec(m, c, g);
+      front = parse_tile_resolve(m, c, front);
+      i32 before = 0, last = -1;
+      for (int w = 0; w < c.nw; ++w) {
+        const u32 cs = parse_word_starts(m, c, w);
+        parse_word_list(m, c, w, cs, before, last);
+        before += __builtin_popcount(cs);
+        if (cs) last = (w << 5) + parse_top(cs);
+      }
+      m.cnt = before;
+      for (int w = 0; w < c.nw; ++w) parse_tile_words(m, c, w, 32);
+      if (k + 1 < n_tiles) gate(ctx(k + 1));
+      // 5: the codes, the pushed distances over the tile's staged mlen
+      for (i32 j = 0; j < m.cnt; ++j) dist[j] = m.md[c.buf][m.list[j]];
+      parse_codes_host(dist.data(), m.cnt, ring, m.ml[c.buf], codes.data(),
+                       PARSE_THREADS);
+      for (i32 j = 0; j < m.cnt; ++j) m.code[m.list[j]] = (i8)codes[j];
+      // 6: the rows
+      for (int t = 0; t < PARSE_THREADS; ++t)
+        parse_tile_store(m, c, (u8*)is_cs + row, (u8*)is_lit + row,
+                         (i32*)dcode + row, true, t, PARSE_THREADS);
+    }
+  }
+  return 0;
+}
+
+// The short codes of a lane's copies, at distances dist[0..n_copies), two
+// ways: `collapsed` 0 steps parse_copy's ring copy by copy (the direct
+// kernel's); 1 takes parse_kernel's collapsed ring, the copies cut into
+// tiles of `tile_copies` with the ring carried between them, each in
+// chunks of `threads` copies.
+extern "C" int brotli_torch_parse_ring_host(const void* dist, int n_copies,
+                                            void* codes, int collapsed,
+                                            int tile_copies, int threads) {
+  if (n_copies < 0 || tile_copies < 1 || threads < 1) return 1;
+  const i32* d = (const i32*)dist;
+  i32* out = (i32*)codes;
+  if (!collapsed) {
+    ParseLane s = parse_lane_init();
+    for (int j = 0; j < n_copies; ++j) out[j] = parse_copy(s, j, 1, d[j]);
+    return 0;
+  }
+  i32 ring[4] = {4, 11, 15, 16};
+  std::vector<i32> pushed(4 + tile_copies);
+  for (int j = 0; j < n_copies; j += tile_copies)
+    parse_codes_host(d + j, std::min(tile_copies, n_copies - j), ring,
+                     pushed.data(), out + j, threads);
   return 0;
 }
 

@@ -15,8 +15,9 @@ Stages, per batch of B_LANES chunks of up to CHUNK_N bytes:
    tensors (`find_matches_ref`, whole-array ops, on CPU tensors);
 2. `greedy_parse`: score gate and lazy look-ahead, then the sequential
    next-free and distance-ring walk (the JAX `lax.scan`): the CUDA kernel
-   csrc/parse.cu on CUDA tensors (`greedy_parse_ref`, a Python loop over
-   positions vectorised over lanes, on CPU tensors);
+   csrc/parse.cu on CUDA tensors, whose only serial step is the frontier
+   walk (`greedy_parse_ref`, a Python loop over positions vectorised over
+   lanes, on CPU tensors);
 3. `build_records`: symbol records already in stream order: the CUDA
    kernel csrc/records.cu on CUDA tensors (`build_records_ref` on CPU
    tensors);
@@ -87,12 +88,19 @@ KERNEL_LAUNCHES = 0
 SERIAL_PACK_LAUNCHES = 0
 PARSE_LAUNCHES = 0
 # Launches of the match and record kernels, counted the same way, and of
-# their first forms (the first designs, kept to be timed against; no main
-# path launches them).
+# their first forms and the parse kernel's (the first designs, kept to be
+# timed against; no main path launches them).
 MATCH_LAUNCHES = 0
 RECORD_LAUNCHES = 0
 MATCH_DIRECT_LAUNCHES = 0
 RECORD_DIRECT_LAUNCHES = 0
+PARSE_DIRECT_LAUNCHES = 0
+
+# csrc/parse.cuh: positions a tile of parse_kernel and a speculation
+# segment, threads a block
+PARSE_TILE = 1024
+PARSE_SEG = 128
+PARSE_THREADS = 128
 
 _M32 = 0xFFFFFFFF
 _I32 = torch.int32
@@ -476,42 +484,114 @@ def greedy_parse(mlen: torch.Tensor, mdist: torch.Tensor,
     """Returns (is_cs, is_lit, dcode_short) (B, N) bool, bool, int32; see
     device_encode.greedy_parse.  mlen, mdist (B, N) and n_valid (B,) are
     int32.  CPU tensors take greedy_parse_ref; CUDA tensors launch
-    csrc/parse.cu, one warp per lane."""
+    csrc/parse.cu `parse_kernel`, a block a lane in tiles of PARSE_TILE
+    positions."""
     global PARSE_LAUNCHES
+    if not _parse_on_card(mlen, mdist, n_valid):
+        return greedy_parse_ref(mlen, mdist, n_valid, lazy, min_gate)
+    out = _launch_parse("brotli_torch_parse", mlen, mdist, n_valid, lazy,
+                        min_gate)
+    PARSE_LAUNCHES += 1
+    return out
+
+
+def greedy_parse_direct(mlen: torch.Tensor, mdist: torch.Tensor,
+                        n_valid: torch.Tensor, lazy=(105, 175),
+                        min_gate: int = 9):
+    """greedy_parse through the first kernel, `parse_direct_kernel` (a warp
+    a lane), the yardstick the parse kernel is timed against; no main path
+    launches it.  CPU tensors take greedy_parse_ref."""
+    global PARSE_DIRECT_LAUNCHES
+    if not _parse_on_card(mlen, mdist, n_valid):
+        return greedy_parse_ref(mlen, mdist, n_valid, lazy, min_gate)
+    out = _launch_parse("brotli_torch_parse_direct", mlen, mdist, n_valid,
+                        lazy, min_gate)
+    PARSE_DIRECT_LAUNCHES += 1
+    return out
+
+
+def _parse_on_card(mlen, mdist, n_valid) -> bool:
+    """False for CPU tensors, True for checked CUDA tensors; raises on
+    another device or shape."""
     _check_parse(mlen, mdist, n_valid)
     if mlen.device.type == "cpu":
-        return greedy_parse_ref(mlen, mdist, n_valid, lazy, min_gate)
+        return False
     if mlen.device.type != "cuda":
         raise ValueError(f"unsupported device {mlen.device}")
+    return True
+
+
+def _launch_parse(entry: str, mlen, mdist, n_valid, lazy, min_gate):
+    """One launch of a parse kernel's C entry on the current stream, its
+    grid sized from the card's SM count; raises when it reports an
+    error."""
     from ..build import kernels_lib
 
     out = _alloc_parse(mlen)
     sms = torch.cuda.get_device_properties(mlen.device).multi_processor_count
     with torch.cuda.device(mlen.device):
-        rc = kernels_lib().brotli_torch_parse(
+        rc = getattr(kernels_lib(), entry)(
             *_parse_c_args(mlen, mdist, n_valid, out, lazy, min_gate, sms),
             torch.cuda.current_stream(mlen.device).cuda_stream,
         )
     if rc != 0:
-        raise RuntimeError(f"parse kernel launch failed: cudaError {rc}")
-    PARSE_LAUNCHES += 1
+        raise RuntimeError(f"parse kernel launch failed ({entry}): "
+                           f"cudaError {rc}")
     return out
+
+
+def parse_config() -> tuple[int, int, int, int, int]:
+    """(threads, static shared bytes, blocks an SM, registers a thread,
+    positions a tile) of csrc/parse.cu's parse_kernel on this card."""
+    from ..build import kernels_lib
+
+    out = (ctypes.c_int * 5)()
+    if kernels_lib().brotli_torch_parse_config(ctypes.addressof(out)):
+        raise RuntimeError("cannot read parse_kernel's launch shape")
+    return tuple(out)
 
 
 def greedy_parse_host(mlen: torch.Tensor, mdist: torch.Tensor,
                       n_valid: torch.Tensor, lazy=(105, 175),
-                      min_gate: int = 9):
-    """csrc/parse.cuh's window walk built for the CPU (build.host_lib): for
-    the tests, which hold it against greedy_parse_ref and JAX."""
+                      min_gate: int = 9, tile: int = PARSE_TILE,
+                      seg: int = PARSE_SEG, direct: bool = False):
+    """csrc/parse.cuh built for the CPU (build.host_lib), for the tests,
+    which hold it against greedy_parse_ref and JAX: parse_kernel's phases
+    in tiles of `tile` positions (a multiple of 32 up to PARSE_TILE) and
+    speculation segments of `seg` (a power of two from 32 up to the tile;
+    the card's are PARSE_TILE and PARSE_SEG), the block's threads as loops;
+    with `direct`, the first kernel's window walk."""
     from ..build import host_lib
 
     _check_parse(mlen, mdist, n_valid)
     if mlen.device.type != "cpu":
         raise ValueError("the host shim takes CPU tensors")
     out = _alloc_parse(mlen)
-    if host_lib().brotli_torch_parse_host(
-            *_parse_c_args(mlen, mdist, n_valid, out, lazy, min_gate, 0)):
+    args = _parse_c_args(mlen, mdist, n_valid, out, lazy, min_gate, 0)
+    rc = (host_lib().brotli_torch_parse_direct_host(*args) if direct
+          else host_lib().brotli_torch_parse_host(*args, int(tile),
+                                                  int(seg)))
+    if rc:
         raise ValueError("host shim refused the batch")
+    return out
+
+
+def parse_ring_host(dist: np.ndarray, collapsed: bool,
+                    tile_copies: int = PARSE_TILE,
+                    threads: int = PARSE_THREADS) -> np.ndarray:
+    """The short codes of a lane's copies at distances `dist` (int32, in
+    order), from csrc/parse.cuh built for the CPU: parse_copy's ring stepped
+    copy by copy, or (`collapsed`) parse_kernel's prefix count of pushes,
+    the copies in tiles of `tile_copies` with the ring carried between
+    them, in chunks of `threads` copies."""
+    from ..build import host_lib
+
+    d = np.ascontiguousarray(dist, np.int32)
+    out = np.empty_like(d)
+    if host_lib().brotli_torch_parse_ring_host(
+            d.ctypes.data, len(d), out.ctypes.data, int(collapsed),
+            int(tile_copies), int(threads)):
+        raise ValueError("host shim refused the copy list")
     return out
 
 

@@ -1,11 +1,11 @@
-"""Where a lane of the encoder's match and record kernels spends its time
-on the card.
+"""Where a lane of the encoder's match, record and parse kernels spends its
+time on the card.
 
-    python3 -m brotli_tpu_torch.tools.enc_phases
+    python3 -m brotli_tpu_torch.tools.enc_phases [--parse-only]
 
 Builds csrc/matches.cu and csrc/records.cu a second time with
 -DENC_PHASE_CLOCKS, into a library of its own in brotli_tpu_torch/build/
-(never the main path's).  In that build a lane's leader thread adds the
+(never the main path's), and csrc/parse.cu the same way into another.  In that build a lane's leader thread adds the
 clock64() cycles of each phase of the lane to a device counter; a phase
 ends at a barrier, so the leader's cycles are the lane's (the direct
 record kernel's lane is a warp).  The match
@@ -37,11 +37,27 @@ the first design, and the block kernel) it prints a JSON line a shape:
 the cycles a lane spends in each phase and its share, and the
 instrumented launch's time.  Every output equals the plain version's.
 Then the main path's builds of both forms timed in turns (direct, new,
-new, direct; time_device_fn, CUDA events).  Needs a CUDA card and nvcc;
-prints the card's name and power limit.
+new, direct; time_device_fn, CUDA events).
+
+The parse kernels' phases (PARSE_PHASES: parse.cu PARSE_PH_*), on the
+match kernel's output at the same three shapes and the default lazy and
+gate knobs: the direct kernel's wait for a window's loads, its gate
+(scores, shuffles, ballots), its copy walk with the ring and its stores;
+parse_kernel's leader is warp 0's thread 0: the speculative walks of
+tile k's segments, the walk (the resolution), the copy list with the
+words' entry frontiers and the words, then "gate": its wait at the barrier
+for the gate warps (tile k + 1's copies, take words and succ) beyond its
+own work, then the codes (the ring's prefix count) and the stores.  Beside them the copies a lane,
+the instrumented launch's time, both forms of the main build in turns
+with the bound (bytes: mlen, mdist and n_valid in, is_cs, is_lit and
+dcode_short out, at 3.35 TB/s), and parse_kernel's launch shape.  Every
+output equals greedy_parse_ref's.  `--parse-only` runs only this part.
+
+Needs a CUDA card and nvcc; prints the card's name and power limit.
 """
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
 import subprocess
@@ -60,6 +76,8 @@ MATCH_PHASES = (("load", "ids")
                    "extension", "store"))
 REC_PHASES = ("table", "forward", "backward", "tile maxima", "tile loads",
               "stores")
+PARSE_PHASES = ("load wait", "gate", "walk", "stores", "speculation",
+                "list and words", "codes")
 KERNELS = ("direct", "new")
 # (tag, bytes a lane, match knobs, records with literal contexts)
 SHAPES = (("1024x32KB default", 32768, {}, False),
@@ -91,6 +109,24 @@ def phase_lib() -> ctypes.CDLL:
     return build._libs[name]
 
 
+def parse_phase_lib() -> ctypes.CDLL:
+    """parse.cu with the phase clocks, built at first use."""
+    name = "brotli_tpu_torch_parse_phases"
+    if name not in build._libs:
+        nvcc = build._nvcc()
+        path = build._build(
+            name, [nvcc, *build.NVCC_FLAGS, "-DENC_PHASE_CLOCKS"],
+            [nvcc, *build.NVCC_LINK_FLAGS], [build.CSRC / "parse.cu"])
+        entry = build._PARSE_ARGS + [ctypes.c_void_p]
+        build._load(name, path, {
+            "brotli_torch_parse": entry,
+            "brotli_torch_parse_direct": entry,
+            "brotli_torch_parse_config": [ctypes.c_void_p],
+            "brotli_torch_parse_clocks": [ctypes.c_void_p],
+        })
+    return build._libs[name]
+
+
 def clocks(lib, which: str, n_phases: int) -> np.ndarray:
     """The counters since the last read, (2 kernels, n_phases), zeroed."""
     out = np.zeros((2, n_phases), np.uint64)
@@ -114,7 +150,7 @@ def run(lib, fn, *args):
 
 
 def ptxas(log: str) -> dict:
-    """nvcc -Xptxas -v lines of the four kernels: registers, stack,
+    """nvcc -Xptxas -v lines of the six kernels: registers, stack,
     spills."""
     out, name = {}, None
     for line in log.splitlines():
@@ -122,7 +158,8 @@ def ptxas(log: str) -> dict:
             if key in line:
                 name = line.split(key, 1)[1].split("'")[0].strip()
         short = next((k for k in ("match_direct_kernel", "match_kernel",
-                                  "records_direct_kernel", "records_kernel")
+                                  "records_direct_kernel", "records_kernel",
+                                  "parse_direct_kernel", "parse_kernel")
                       if name and k in name), None)
         if short and ("stack frame" in line or "registers" in line):
             out.setdefault(short, []).append(line.split(":", 1)[-1].strip())
@@ -143,6 +180,10 @@ def same(a, b) -> bool:
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--parse-only", action="store_true",
+                    help="only the parse kernels' phases and times")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("enc_phases: needs a CUDA card")
     card = subprocess.run(
@@ -153,6 +194,14 @@ def main() -> int:
     build.kernels_lib()
     print(json.dumps({"ptxas": ptxas(build.last_build_log.get(
         "brotli_tpu_torch_kernels", ""))}))
+    if not args.parse_only:
+        match_records(card)
+    parse_phases(card)
+    return 0
+
+
+def match_records(card: str) -> None:
+    """The match and record kernels' phases and times at SHAPES."""
     lib = phase_lib()
     fns = {"direct": (E.find_matches_direct, E.build_records_direct),
            "new": (E.find_matches, E.build_records)}
@@ -207,7 +256,49 @@ def main() -> int:
             times[what] = {"order": order,
                            "ms": [round(t, 4) for t in turns]}
         print(json.dumps({"shape": tag, "card": card, "in_turns": times}))
-    return 0
+
+
+def parse_phases(card: str) -> None:
+    """Both parse kernels at SHAPES, on the main build's matches: the
+    instrumented build's phase split, then the main build in turns."""
+    lib = parse_phase_lib()
+    forms = {"direct": E.greedy_parse_direct, "new": E.greedy_parse}
+    threads, smem, per_sm, regs, tile = E.parse_config()
+    print(json.dumps({"parse_kernel": {
+        "threads": threads, "static_shared_bytes": smem,
+        "blocks_an_sm": per_sm, "registers": regs, "tile": tile}}))
+    cuda = torch.device("cuda")
+    data = corpus(LANES * 32768)
+    for tag, chunk, mkw, _ in SHAPES:
+        data_t, _, n_valid = E.stage_input(data[: LANES * chunk], chunk, cuda)
+        ins = (*E.find_matches(data_t, n_valid, **mkw), n_valid)
+        ref = E.greedy_parse_ref(*ins)
+        copies = int(ref[0].sum().item()) / LANES
+        clocks(lib, "parse", len(PARSE_PHASES))
+        for k, kernel in enumerate(KERNELS):
+            fn = forms[kernel]
+            t = time_device_fn(lambda: run(lib, fn, *ins), rep=1, samples=1,
+                               warm_up=False) * 1e3
+            pc = clocks(lib, "parse", len(PARSE_PHASES))[k]
+            got = run(lib, fn, *ins)
+            clocks(lib, "parse", len(PARSE_PHASES))
+            if not same(got, ref):
+                raise RuntimeError(f"instrumented {kernel} parse kernel != "
+                                   f"greedy_parse_ref at {tag}")
+            print(json.dumps({"shape": tag, "kernel": f"parse {kernel}",
+                              "copies_a_lane": copies,
+                              "instrumented_ms": round(t, 4),
+                              **split(pc, PARSE_PHASES, LANES)}))
+        for kernel in KERNELS:
+            if not same(forms[kernel](*ins), ref):
+                raise RuntimeError(f"{kernel} parse kernel != plain at {tag}")
+        order = ["direct", "new", "new", "direct"]
+        turns = [time_device_fn(lambda f=forms[kn]: f(*ins)) * 1e3
+                 for kn in order]
+        bound = (14 * ins[0].numel() + 4 * LANES) / 3.35e9
+        print(json.dumps({"shape": tag, "card": card, "in_turns": {
+            "parse": {"order": order, "ms": [round(x, 4) for x in turns]}},
+            "bound_ms": round(bound, 6), "bound_by": "bytes"}))
 
 
 def _margs(mkw: dict) -> tuple:

@@ -40,14 +40,21 @@ Phases, in order; any failure raises and the exit code is non-zero:
    33.6 MB at the default knobs, decoded back through
    decode_batch_device_e2e(device="cuda"): equal to the input, no host
    fallback on either side, all six kernels launched (matches, parse,
-   records and pack once each); CUDA events around each stage inside that
+   records and pack once each; no direct form); CUDA events around each
+   stage inside that
    one encode (upload, matches, parse, records, host tables, pack,
    assembly); the streams byte-identical to an encode of the same bytes
    whose match and record stages are the plain versions;
-8. parse kernel == plain version on the card, bit for bit (is_cs, is_lit,
-   dcode_short): 1024 x 2 KB at both lazy/gate knob sets over the matches
-   of three match-finder settings, then the main encode's shape and knobs
-   once, with the kernel's time;
+8. parse kernels == plain version on the card, bit for bit (is_cs, is_lit,
+   dcode_short): the main path's parse_kernel and its direct form (the
+   first design, greedy_parse_direct) at both lazy/gate knob sets over the
+   matches of three match-finder settings at 1024 x 2 KB and on hand-made
+   edge lanes (a wrapped copy end, copies across tiles, n_valid past n and
+   below 0; n = 4096 and an unaligned 3999); at the main encode's 1024 x
+   32 KB and the v3 cell's 1024 x 4 KB both kernels equal at every case
+   and the plain version once a shape; both kernels timed in turns (direct,
+   new, new, direct) at 1024 x 32 KB (default and chain depth 4 matches)
+   and 1024 x 4 KB beside the bound, with parse_kernel's launch shape;
 9. match and record kernels == plain versions on the card, bit for bit
    (mlen, mdist; rec0, rec1, n_records), the main path's (match_kernel,
    records_kernel) and their direct forms (the first designs): under each
@@ -903,10 +910,12 @@ def encode_counted(data: bytes, **kw) -> tuple[list[bytes], float, dict]:
     E.MATCH_LAUNCHES = 0
     E.RECORD_LAUNCHES = 0
     E.MATCH_DIRECT_LAUNCHES = E.RECORD_DIRECT_LAUNCHES = 0
+    E.PARSE_DIRECT_LAUNCHES = 0
     streams, phases, summary, state = profile_device_encode(
         data, "cuda", chunk_size=ENC_CHUNK, **kw)
-    check(E.MATCH_DIRECT_LAUNCHES == E.RECORD_DIRECT_LAUNCHES == 0,
-          "the encode launched a direct match or record kernel")
+    check(E.MATCH_DIRECT_LAUNCHES == E.RECORD_DIRECT_LAUNCHES
+          == E.PARSE_DIRECT_LAUNCHES == 0,
+          "the encode launched a direct match, parse or record kernel")
     seen = {"launches": E.KERNEL_LAUNCHES,
             "parse_launches": E.PARSE_LAUNCHES,
             "match_launches": E.MATCH_LAUNCHES,
@@ -1021,12 +1030,13 @@ def phase_enc_bench(data: bytes, card_str: str) -> tuple[int, dict]:
     """The reference bench's encode setting: the streams decoded back
     through the v3 kernel, the kernels counted and the pack kernel held
     against its plain version at this shape; returns (pack max_abs_err,
-    the match and record launches)."""
+    the match, parse and record launches)."""
     import brotli_tpu_torch
     from brotli_tpu_torch.ops import decode3 as D3
 
     streams, dt, seen = encode_counted(data, **ENC_BENCH)
     launches = {"matches": seen["match_launches"],
+                "parse": seen["parse_launches"],
                 "records": seen["record_launches"]}
     fb0 = brotli_tpu_torch.fallback_stats()["lanes_fallback"]
     n0 = D3.KERNEL_LAUNCHES
@@ -1081,10 +1091,59 @@ def parse_inputs(data: bytes, chunk: int, **match_kw):
     return mlen, mdist, n_valid
 
 
+def parse_edge_lanes(n: int):
+    """(mlen, mdist, n_valid) on the card: 8 hand-made lanes of n >= 3200
+    positions (several of parse_kernel's 1,024-position tiles) for the parse
+    kernels' edges (numpy, seed 31): a copy end that wraps past int32, a
+    copy to the lane's end from position 100, copies across tile edges and
+    onto them, mdist <= 0 at copy starts, a take at every position, n_valid
+    past n and below 0, a copy past the lane's end."""
+    rng = np.random.default_rng(31)
+    mlen = np.zeros((8, n), np.int32)
+    mdist = np.zeros((8, n), np.int32)
+    nv = np.full(8, n, np.int32)
+    mlen[0, 1500], mdist[0, 1500] = 2**31 - 301, 2   # 1500 + len wraps
+    mlen[0, 1600], mdist[0, 1600] = 50, 9
+    mlen[1, 100], mdist[1, 100] = 2**31 - 1001, 1
+    for p, ln in ((5, 2100), (2105, 967), (3072, 30), (3199, 10)):
+        mlen[2, p], mdist[2, p] = ln, 6
+    for k, d in enumerate((4, 0, 11, -5, 11, 0, 4)):
+        mlen[3, 1000 + 30 * k], mdist[3, 1000 + 30 * k] = 10, d
+    mlen[4] = 4
+    mdist[4] = rng.choice(np.array([4, 11, 15, 16, 5, 7], np.int32), n)
+    live = rng.random(n) < 0.4
+    mlen[5] = np.where(live, rng.integers(4, 40, n), 0)
+    mdist[5] = np.where(live, rng.integers(1, 20, n), 0)
+    nv[5], nv[6] = 5 * n, -3
+    mlen[6, 50:60], mdist[6, 50:60] = 8, 2
+    mlen[7, n - 20], mdist[7, n - 20] = 100, 7
+    return tuple(torch.from_numpy(a).cuda() for a in (mlen, mdist, nv))
+
+
+def parse_forms(ins, lazy, gate, ref=None) -> int:
+    """greedy_parse (parse_kernel) against greedy_parse_direct on the same
+    inputs, and both against `ref` (greedy_parse_ref's output) where one is
+    given: max_abs_err over is_cs, is_lit, dcode_short."""
+    from brotli_tpu_torch.ops import device_encode as E
+
+    new = E.greedy_parse(*ins, lazy, gate)
+    old = E.greedy_parse_direct(*ins, lazy, gate)
+    err = max_abs_err(new, old)
+    if ref is not None:
+        err = max(err, max_abs_err(new, ref), max_abs_err(old, ref))
+    return err
+
+
 def phase_parse_kernel_vs_plain(enc_data: bytes, card_str: str) -> dict:
-    """greedy_parse's kernel against greedy_parse_ref on CUDA tensors: both
-    knob sets on 1024 x 2 KB for each match setting, then the main
-    encode's inputs (1024 x 32 KB, default knobs) once, timed."""
+    """greedy_parse's kernel (parse_kernel) and its direct form (the first
+    design) against greedy_parse_ref on CUDA tensors, bit for bit: both
+    knob sets for each match setting at 1024 x 2 KB and on hand-made edge
+    lanes (n = 4096, and 3999 for the unaligned rows); at the main encode's
+    1024 x 32 KB and the v3 cell's 1024 x 4 KB the two kernels equal at
+    every case and the plain version once a shape (default knobs, the
+    shape's own matches).  Then both kernels in turns (direct, new, new,
+    direct) at 1024 x 32 KB (default and chain_depth 4 matches) and 1024 x
+    4 KB, each with its bound."""
     from brotli_tpu_torch.ops import device_encode as E
 
     data = corpus(1024 * 2048)
@@ -1092,38 +1151,85 @@ def phase_parse_kernel_vs_plain(enc_data: bytes, card_str: str) -> dict:
     for mname, mkw in PARSE_MATCH_SETS.items():
         ins = parse_inputs(data, 2048, **mkw)
         for lazy, gate in PARSE_KNOBS:
-            ker = E.greedy_parse(*ins, lazy, gate)
             ref = E.greedy_parse_ref(*ins, lazy, gate)
-            torch.cuda.synchronize()
-            err = max_abs_err(ker, ref)
-            check(err == 0, f"parse kernel != plain version ({mname}, lazy "
+            err = parse_forms(ins, lazy, gate, ref)
+            check(err == 0, f"parse kernels != plain version ({mname}, lazy "
                   f"{lazy}, gate {gate}): {err}")
             worst = max(worst, err)
             print(f"[parse kernel==plain] 1024 lanes x 2 KB, matches "
                   f"{mname}, lazy {lazy}, min_gate {gate}: max_abs_err {err} "
-                  f"over is_cs, is_lit, dcode_short ({int(ker[0].sum())} "
-                  "copies; exact equality required)")
-    mlen, mdist, n_valid = parse_inputs(enc_data, ENC_CHUNK)
-    out = {}
-    ms = device_ms(lambda: out.__setitem__(
-        "k", E.greedy_parse(mlen, mdist, n_valid)))
-    plain = plain_ms(lambda: out.__setitem__(
-        "p", E.greedy_parse_ref(mlen, mdist, n_valid)))
-    err = max_abs_err(out["k"], out["p"])
-    check(err == 0, f"parse kernel != plain version at the main shape: {err}")
-    # bytes: mlen, mdist and n_valid in; is_cs, is_lit (1 B) and dcode
-    # (4 B) out
-    n = mlen.numel()
-    bound = bound_ms(8 * n + 4 * n_valid.numel() + 6 * n)
-    print(f"[parse kernel==plain] 1024 lanes x 32 KB, default knobs: "
-          f"max_abs_err {err} ({int(out['k'][0].sum())} copies)")
-    print(f"[enc times] {card_str}: parse kernel {ms:.4f} ms per "
-          f"{len(enc_data)} B batch (time_device_fn: CUDA events, best of 3 "
-          f"windows of 5, on the main encode's matches); plain "
-          f"greedy_parse_ref {plain:.3f} ms on the same inputs (CUDA "
-          f"events, one run); bound {bound[0]:.6f} ms ({bound[1]})")
-    return {"ms": ms, "plain_ms": plain, "err": max(worst, err),
-            "bound": bound}
+                  f"over is_cs, is_lit, dcode_short, parse_kernel and "
+                  f"parse_direct_kernel ({int(ref[0].sum())} copies; exact "
+                  "equality required)")
+    for n in (4096, 3999):
+        ins = parse_edge_lanes(n)
+        for lazy, gate in PARSE_KNOBS:
+            err = parse_forms(ins, lazy, gate,
+                              E.greedy_parse_ref(*ins, lazy, gate))
+            check(err == 0, f"parse kernels != plain version on the edge "
+                  f"lanes (n {n}, lazy {lazy}): {err}")
+        print(f"[parse kernel==plain] 8 edge lanes x {n} B (a wrapped copy "
+              f"end, copies across tiles, n_valid past n and below 0), both "
+              f"knob sets: max_abs_err 0, both kernels")
+    res = {}
+    for tag, chunk, plain_mkw in (("main", ENC_CHUNK, {}), ("v3", 4096,
+                                                           V3_MATCH)):
+        for mname, mkw in PARSE_MATCH_SETS.items():
+            ins = parse_inputs(enc_data[: 1024 * chunk], chunk, **mkw)
+            for lazy, gate in PARSE_KNOBS:
+                ref = None
+                if mkw == plain_mkw and (lazy, gate) == PARSE_KNOBS[0]:
+                    out = {}
+                    pms = plain_ms(lambda: out.__setitem__(
+                        "p", E.greedy_parse_ref(*ins, lazy, gate)))
+                    ref = out["p"]
+                    res[tag] = {"plain_ms": pms,
+                                "copies": int(ref[0].sum()) / 1024}
+                err = parse_forms(ins, lazy, gate, ref)
+                check(err == 0, f"parse kernels differ at 1024 x {chunk} B "
+                      f"({mname}, lazy {lazy}): {err}")
+                worst = max(worst, err)
+            timed = (tag == "main" and mname in ("default", "chain_depth 4")
+                     or tag == "v3" and mkw == V3_MATCH)
+            if not timed:
+                continue
+            turns = in_turns(lambda: E.greedy_parse(*ins),
+                             lambda: E.greedy_parse_direct(*ins))
+            # bytes: mlen, mdist and n_valid in; is_cs, is_lit (1 B) and
+            # dcode (4 B) out
+            n = ins[0].numel()
+            bound = bound_ms(14 * n + 4 * ins[2].numel())
+            key = tag if mname != "chain_depth 4" else "cd4"
+            res[key] = {**res.get(key, {}), "turns": turns, "bound": bound}
+            print(f"[enc times] {card_str}: parse kernel at 1024 x {chunk} B, "
+                  f"matches {mname}: {turns_str(turns)} (time_device_fn: CUDA "
+                  f"events, best of 3 windows of 5 each); bound "
+                  f"{bound[0]:.6f} ms ({bound[1]}), "
+                  f"{100 * bound[0] / turns['new']:.2f}% of it (direct "
+                  f"{100 * bound[0] / turns['old']:.2f}%)")
+        print(f"[parse kernel==plain] 1024 lanes x {chunk} B: parse_kernel == "
+              f"parse_direct_kernel at every match and knob set, both == "
+              f"greedy_parse_ref at the default knobs on the "
+              f"{plain_mkw or 'default'} matches "
+              f"({res[tag]['copies']:.1f} copies a lane; plain "
+              f"{res[tag]['plain_ms']:.3f} ms, CUDA events, one run)")
+    threads, smem, per_sm, regs, tile = E.parse_config()
+    print(f"[enc times] {card_str}: parse_kernel {threads} threads a lane, "
+          f"tiles of {tile} positions, {smem} B static shared memory, "
+          f"{per_sm} blocks an SM, {regs} registers a thread, a persistent "
+          f"grid (direct: a warp a lane)")
+    return {"err": worst, "ms": res["main"]["turns"]["new"],
+            "direct_ms": res["main"]["turns"]["old"],
+            "plain_ms": res["main"]["plain_ms"], "bound": res["main"]["bound"],
+            "ms_cd4": res["cd4"]["turns"]["new"],
+            "direct_ms_cd4": res["cd4"]["turns"]["old"],
+            "ms_4k": res["v3"]["turns"]["new"],
+            "direct_ms_4k": res["v3"]["turns"]["old"],
+            "plain_ms_4k": res["v3"]["plain_ms"],
+            "bound_ms_4k": res["v3"]["bound"][0],
+            "config": {"threads": threads, "static_shared_bytes": smem,
+                       "blocks_an_sm": per_sm, "registers": regs,
+                       "tile": tile}}
 
 
 # the match settings of the match and record kernels' checks: the
@@ -1413,14 +1519,16 @@ def phase_v3_kernel_vs_plain(card_str: str) -> int:
 
 def v3_main_streams(card_str: str) -> tuple[bytes, list[bytes], dict]:
     """6 x 1024 x 4 KB, one encode_device_batch call per group; returns
-    (bytes, streams, the match and record launches, counted from 0)."""
+    (bytes, streams, the match, parse and record launches, counted from
+    0; no direct parse launch)."""
     import brotli_tpu_torch
     from brotli_tpu_torch.ops import device_encode as E
 
     piece = 1024 * V3_BENCH["chunk_size"]
     data = corpus(V3_GROUPS * piece)
     enc0 = brotli_tpu_torch.encode_fallback_stats()["lanes_fallback"]
-    E.MATCH_LAUNCHES = E.RECORD_LAUNCHES = 0
+    E.MATCH_LAUNCHES = E.RECORD_LAUNCHES = E.PARSE_LAUNCHES = 0
+    E.PARSE_DIRECT_LAUNCHES = 0
     t0 = time.perf_counter()
     streams = []
     for g in range(V3_GROUPS):
@@ -1428,12 +1536,16 @@ def v3_main_streams(card_str: str) -> tuple[bytes, list[bytes], dict]:
             data[g * piece:(g + 1) * piece], device="cuda", **V3_BENCH)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {"matches": E.MATCH_LAUNCHES, "records": E.RECORD_LAUNCHES}
+    launches = {"matches": E.MATCH_LAUNCHES, "parse": E.PARSE_LAUNCHES,
+                "records": E.RECORD_LAUNCHES}
     fell = brotli_tpu_torch.encode_fallback_stats()["lanes_fallback"] - enc0
     check(fell == 0, f"{fell} v3 main lanes overflowed (host-encoded)")
     check(len(streams) == V3_GROUPS * 1024, f"{len(streams)} streams")
-    check(launches == {"matches": V3_GROUPS, "records": V3_GROUPS},
-          f"[v3 main] encode launches {launches}, want {V3_GROUPS} each")
+    check(launches == dict.fromkeys(("matches", "parse", "records"),
+                                    V3_GROUPS)
+          and E.PARSE_DIRECT_LAUNCHES == 0,
+          f"[v3 main] encode launches {launches} (direct parse "
+          f"{E.PARSE_DIRECT_LAUNCHES}), want {V3_GROUPS} each, no direct")
     print(f"[v3 main] {card_str}: {len(data)} B encoded on the card by "
           f"{V3_GROUPS} encode_device_batch calls ({V3_BENCH}) in {dt:.3f} s (host "
           f"clock), ratio {sum(map(len, streams)) / len(data):.6f}, "
@@ -1915,7 +2027,8 @@ def zero_launches() -> None:
                        (E, ("KERNEL_LAUNCHES", "PARSE_LAUNCHES",
                             "SERIAL_PACK_LAUNCHES", "MATCH_LAUNCHES",
                             "RECORD_LAUNCHES", "MATCH_DIRECT_LAUNCHES",
-                            "RECORD_DIRECT_LAUNCHES")),
+                            "RECORD_DIRECT_LAUNCHES",
+                            "PARSE_DIRECT_LAUNCHES")),
                        (Z, ("KERNEL_LAUNCHES", "DIRECT_LAUNCHES"))):
         for name in names:
             setattr(mod, name, 0)
@@ -1930,7 +2043,8 @@ def no_direct_launches(what: str) -> None:
 
     check(D.DIRECT_LAUNCHES == R.DIRECT_LAUNCHES == D3.DIRECT_LAUNCHES
           == E.SERIAL_PACK_LAUNCHES == Z.DIRECT_LAUNCHES
-          == E.MATCH_DIRECT_LAUNCHES == E.RECORD_DIRECT_LAUNCHES == 0,
+          == E.MATCH_DIRECT_LAUNCHES == E.RECORD_DIRECT_LAUNCHES
+          == E.PARSE_DIRECT_LAUNCHES == 0,
           f"{what} launched a direct or serial kernel")
 
 
@@ -2579,9 +2693,18 @@ def main() -> int:
                times["resolve_ms"], times["plain_resolve_ms"],
                times["resolve_bound"]),
          "direct_ms": times["direct_resolve_ms"]},
-        row("greedy_parse", "parse.cu", "brotli_tpu/ops/device_encode.py:325",
-            enc_launches["parse"], parse["err"], parse["ms"],
-            parse["plain_ms"], parse["bound"]),
+        # ms, plain_ms and bound at the main encode's 1024 x 32 KB; direct_ms:
+        # the first design in turns with it; chain depth 4's matches and the
+        # v3 cell's 1024 x 4 KB beside them; launches on [enc bench-config]
+        # and [v3 main] (6 encodes), each counted from 0
+        {**row("greedy_parse", "parse.cu",
+               "brotli_tpu/ops/device_encode.py:325", enc_launches["parse"],
+               parse["err"], parse["ms"], parse["plain_ms"], parse["bound"]),
+         **{k: parse[k] for k in ("direct_ms", "ms_cd4", "direct_ms_cd4",
+                                  "ms_4k", "direct_ms_4k", "plain_ms_4k",
+                                  "bound_ms_4k", "config")},
+         "bench_launches": bench_launches["parse"],
+         "v3_launches": v3_enc_launches["parse"]},
         {**row("pack_records", "pack.cu",
                "brotli_tpu/ops/device_encode.py:689", enc_launches["pack"],
                max(enc_err, enc_times["err"], bench_err),
