@@ -16,6 +16,10 @@ kernel that CPU tensors take):
                         csrc/decode3.cu
   ops/resolve.py        LZ resolve (brotli_tpu/ops/pallas_resolve.py),
                         kernel csrc/resolve.cu
+  ops/preflight2_native.py
+                        the v2 round trip's host preflight and staging in
+                        C++ (native/preflight2.cpp, over threads): the
+                        port's tensors in one pinned buffer and one copy
   ops/device_zopfli.py  the quality-10 Zopfli DP
                         (brotli_tpu/ops/device_zopfli.py): matches and
                         backtrack on the host, the node relaxation in

@@ -22,18 +22,19 @@ from pathlib import Path
 import torch
 
 
-def example_shared_batch():
-    """(data, streams, batch): 32 chunks of 512 B of repeated text as
-    shared-table streams and their preflight (__graft_entry__'s batch)."""
+def example_shared_batch(device: torch.device | str = "cpu"):
+    """(data, streams, staged): 32 chunks of 512 B of repeated text as
+    shared-table streams (__graft_entry__'s batch) and their staging on
+    `device` (ops/preflight2_native.stage_v2_native, one group)."""
     from .encode.sharded import encode_sharded
-    from .ops.preflight2 import preflight_shared
+    from .ops.preflight2_native import stage_v2_native
 
     data = (b"the quick brown fox jumps over the lazy dog. " * 512)[:32 * 512]
     streams = encode_sharded(data, chunk_size=512)
-    batch = preflight_shared(streams)
-    if batch is None:
-        raise RuntimeError("preflight_shared refused the example batch")
-    return data, streams, batch
+    staged = stage_v2_native(streams, device, groups=1)
+    if staged is None:
+        raise RuntimeError("the v2 staging refused the example batch")
+    return data, streams, staged
 
 
 def entry(device: torch.device | str = "cuda"):
@@ -41,10 +42,10 @@ def entry(device: torch.device | str = "cuda"):
     staged on `device` (the card unless the caller asks for the CPU, where
     fn is the kernel's plain version).  fn(*args) gives (tokens, counts,
     phases, words consumed) per lane."""
-    from .ops.decode2 import batch_to_torch, entropy_decode
+    from .ops.decode2 import entropy_decode
 
-    _, _, batch = example_shared_batch()
-    return entropy_decode, (batch_to_torch(batch, device),)
+    _, _, staged = example_shared_batch(device)
+    return entropy_decode, (staged.tb,)
 
 
 # dryrun_multichip's encode: two and a bit pieces of B_LANES (1024) chunks

@@ -1,10 +1,15 @@
 """v2 entropy decode and the device decode round trip.  Counterpart of
 brotli_tpu/ops/pallas_decode2.py.
 
-The host half is the port's copy of the reference's (ops/preflight2.py):
-`preflight_shared` / `preflight_binned` stage a batch of same-table streams
-into a `SharedBatch` (numpy), exactly as for the JAX kernel.
-`batch_to_torch` turns that staging into the port's tensors, and the device
+The round trip's host half is native: ops/preflight2_native.py
+(`stage_v2_native`) parses, bins and stages a batch of shared-table
+streams in C++ straight into the port's tensors, in one pinned buffer and
+one copy to the card; `collect_lanes_pinned` brings the bytes and each
+lane's flags back through pinned buffers.  The port's copy of the
+reference's numpy host half (ops/preflight2.py: `preflight_shared` /
+`preflight_binned` into a `SharedBatch`), with `stage_v2`,
+`batch_to_torch` and `collect_lanes` here, stays as the yardstick that
+the native staging is held to, and stages the kernel checks.  The device
 half runs two kernels:
 
 1. `entropy_decode` (csrc/decode2.cu `decode2_kernel`): bits -> v2
@@ -53,6 +58,7 @@ from .preflight2 import (
     TAG_COPY,
     TAG_DIST,
     TAG_FUSED,
+    WIDX_SLACK,
     SharedBatch,
     lane_overran,
     preflight_binned,
@@ -577,17 +583,17 @@ def run_batch(batch: SharedBatch, device: torch.device | str,
     return tok, count, phase
 
 
-def run_batch_e2e(batch: SharedBatch, device: torch.device | str):
-    """Entropy kernel + LZ resolve on `device`, the tokens never leaving it.
+def run_batch_e2e(staged):
+    """Entropy kernel + LZ resolve on a batch that stage_v2_native staged
+    (ops/preflight2_native.StagedV2), the tokens never leaving its device.
 
-    Returns (resolved (n_lanes, max_mlen) uint8 device tensor, err flags
-    (n_lanes,) device tensor, phases (n_lanes,) host array).  Lanes that
-    read past their own words (a truncated stream decoding zero padding)
-    get phase 0xFFFF, so no caller takes their bytes."""
-    tb = batch_to_torch(batch, device)
+    Returns (resolved (n_lanes, max_mlen) uint8, err, phase, widx
+    (n_lanes,) int32), all on the batch's device, for
+    collect_lanes_pinned."""
+    tb = staged.tb
     tok, count, phase, widx = entropy_decode(tb)
     resolved, err = resolve_tokens(tok, count, tb.mlen, tb.max_mlen)
-    return resolved, err, host_phases(batch, phase, widx)
+    return resolved, err, phase, widx
 
 
 def host_phases(batch: SharedBatch, phase: torch.Tensor,
@@ -621,10 +627,12 @@ def _note_fallbacks(n_lanes: int, n_fallback: int) -> None:
 
 def stage_v2(streams: list[bytes], groups: int | None = None
              ) -> SharedBatch | None:
-    """The batch of the v2 kernels for `streams`: preflight_shared
-    (rate-sorted, `groups` groups of 1024, GROUP_CAP at most by default),
-    else preflight_binned's bins (at most GROUP_CAP groups); None when
-    neither accepts the streams."""
+    """The batch of the v2 kernels for `streams` in the reference's numpy
+    staging: preflight_shared (rate-sorted, `groups` groups of 1024,
+    GROUP_CAP at most by default), else preflight_binned's bins (at most
+    GROUP_CAP groups); None when neither accepts the streams.  The
+    yardstick of ops/preflight2_native.stage_v2_native, which the decode
+    entry points use."""
     if groups is None:
         groups = min(GROUP_CAP, -(-len(streams) // NSTREAM))
     batch = preflight_shared(streams, groups=groups, rate_sort=True)
@@ -638,9 +646,11 @@ def stage_v2(streams: list[bytes], groups: int | None = None
 def collect_lanes(batch: SharedBatch, streams: list[bytes],
                   phases: np.ndarray, resolved: torch.Tensor,
                   err: torch.Tensor) -> list[bytes]:
-    """Each stream's bytes from a finished batch, in stream order: a lane
-    that ends in a phase other than DONE or carries resolve flags is
-    re-decoded on the host.  Every such lane counts in fallback_stats()."""
+    """Each stream's bytes from a finished SharedBatch, in stream order: a
+    lane that ends in a phase other than DONE (host_phases marks overrun
+    lanes) or carries resolve flags is re-decoded on the host.  Every such
+    lane counts in fallback_stats().  The yardstick of
+    collect_lanes_pinned."""
     outs, errs = unpack_resolved(resolved, err, batch.mlens)
     results: list[bytes | None] = [None] * batch.n_streams
     n_fallback = 0
@@ -657,27 +667,66 @@ def collect_lanes(batch: SharedBatch, streams: list[bytes],
     return results  # type: ignore[return-value]
 
 
+def collect_lanes_pinned(staged, streams: list[bytes],
+                         resolved: torch.Tensor, err: torch.Tensor,
+                         phase: torch.Tensor, widx: torch.Tensor
+                         ) -> list[bytes]:
+    """collect_lanes for a batch that stage_v2_native staged: each
+    stream's bytes in stream order.
+
+    On the card the resolved bytes and each lane's err, phase and widx go
+    into pinned buffers on the current stream, with one synchronise; on
+    the CPU they are read where they lie.  A lane whose phase is not DONE,
+    that read past its own words (lane_overran) or that carries resolve
+    flags is re-decoded on the host, and counted in fallback_stats()."""
+    if resolved.device.type == "cuda":
+        host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                .copy_(t, non_blocking=True)
+                for t in (resolved, err, phase, widx)]
+        torch.cuda.current_stream(resolved.device).synchronize()
+    else:
+        host = [resolved, err, phase, widx]
+    raw, errs, phases, widxs = (t.numpy() for t in host)
+    perm = staged.perm
+    live = (perm >= 0) & (perm < staged.n_streams)
+    bad = live & ((phases != DONE) | (errs != 0)
+                  | (widxs > staged.n_words.astype(np.int64) + WIDX_SLACK))
+    results: list[bytes | None] = [None] * staged.n_streams
+    flat = memoryview(raw.reshape(-1))
+    stride = raw.shape[1]
+    good = np.flatnonzero(live & ~bad)
+    for slot, i, m in zip(good.tolist(), perm[good].tolist(),
+                          staged.mlens[good].tolist()):
+        results[i] = bytes(flat[slot * stride: slot * stride + m])
+    fell = np.flatnonzero(bad)
+    for i in perm[fell].tolist():
+        results[i] = host_decode(streams[i])
+    _note_fallbacks(staged.n_streams, int(fell.size))
+    return results  # type: ignore[return-value]
+
+
 def decode_batch_device_e2e(streams: list[bytes], *,
                             device: torch.device | str = "cuda",
                             groups: int | None = None) -> list[bytes]:
     """Decode a batch of shared-table streams with both phases on `device`.
 
-    Same-table streams (encode_sharded output) stage through
-    preflight_shared (rate-sorted), per-group tables through
-    preflight_binned (stage_v2).  Lanes that end in a phase other than
-    DONE, read past their own words, or carry resolve flags are re-decoded
-    by the host decoder; a batch neither preflight accepts (more streams
-    than `groups` groups hold, GROUP_CAP groups by default; more than
-    GROUP_CAP groups of bins) is host-decoded whole.  Every such lane
-    counts in fallback_stats().
+    The streams are staged by stage_v2_native (ops/preflight2_native.py):
+    same-table streams in preflight_shared's layout (rate-sorted, `groups`
+    groups of 1024, by default as many as the streams fill, at most
+    GROUP_CAP), per-group tables in preflight_binned's bins.  Lanes that
+    end in a phase other than DONE, read past their own words, or carry
+    resolve flags are re-decoded by the host decoder (collect_lanes_pinned);
+    a batch neither layout accepts (more streams than `groups` groups hold
+    and more than GROUP_CAP groups of bins, an ineligible stream) is
+    host-decoded whole.  Every such lane counts in fallback_stats().
     """
-    dev = resolve_device(device)
-    batch = stage_v2(streams, groups)
-    if batch is None:
+    from . import preflight2_native
+
+    staged = preflight2_native.stage_v2_native(streams, device, groups)
+    if staged is None:
         _note_fallbacks(len(streams), len(streams))
         return [host_decode(s) for s in streams]
-    resolved, err, phases = run_batch_e2e(batch, dev)
-    return collect_lanes(batch, streams, phases, resolved, err)
+    return collect_lanes_pinned(staged, streams, *run_batch_e2e(staged))
 
 
 def decode_batch_pallas2(streams: list[bytes], *,
@@ -687,7 +736,7 @@ def decode_batch_pallas2(streams: list[bytes], *,
     driver the reference's multi-device decode gives a group that
     preflight_shared refuses.  The reference resolves its tokens with the
     host C++ resolver; here both phases run on the device through the
-    port's kernels, so this is decode_batch_device_e2e: preflight_shared,
-    then preflight_binned, then the host decoder for the whole batch,
-    every host-decoded lane counted in fallback_stats()."""
+    port's kernels, so this is decode_batch_device_e2e: the shared layout,
+    then the binned one, then the host decoder for the whole batch, every
+    host-decoded lane counted in fallback_stats()."""
     return decode_batch_device_e2e(streams, device=device, groups=groups)

@@ -135,16 +135,18 @@ def decode_batches_multichip(streams: list[bytes],
     """Decode shared-table streams over the mesh's slots.
 
     Groups of min(group_size, 1024) streams go round-robin over the slots,
-    each group staged with preflight_shared (rate-sorted) as one batch of
-    the entropy and resolve kernels.  Dispatch is in three phases: every
-    group's staging and entropy kernel on its slot's stream; every
-    resolve kernel behind it on the same stream (the token counts stay on
-    the device, so no host read sits between the two); then the ordered
-    fetch and unpack, with lanes the kernels flag re-decoded on the host
-    and counted in ops/decode2.fallback_stats().  A group preflight_shared
-    refuses goes through decode_batch_pallas2 on the first slot, after
+    each group staged in preflight_shared's layout (rate-sorted) by
+    ops/preflight2_native.stage_v2_native as one batch of the entropy and
+    resolve kernels.  Dispatch is in three phases: every group's staging
+    and entropy kernel on its slot's stream; every resolve kernel behind it
+    on the same stream (the token counts stay on the device, so no host
+    read sits between the two); then the ordered fetch and unpack
+    (collect_lanes_pinned), with lanes the kernels flag re-decoded on the
+    host and counted in ops/decode2.fallback_stats().  A group of several
+    table sets goes through decode_batch_pallas2 on the first slot, after
     the other groups are queued."""
     from ..ops import decode2 as D
+    from ..ops import preflight2_native as N
     from ..ops.resolve import resolve_tokens
 
     if mesh is None:
@@ -156,31 +158,32 @@ def decode_batches_multichip(streams: list[bytes],
     with _dispatch(mesh):
         # phase 1: host preflight, staging and the entropy kernel per group
         for gi, group in enumerate(groups):
-            batch = D.preflight_shared(group, rate_sort=True)
-            if batch is None:
-                refused.append(gi)
-                continue
             slot = mesh[len(pending) % len(mesh)]
             with slot.active():
-                tb = D.batch_to_torch(batch, slot.device)
-                tok, count, phase, widx = D.entropy_decode(tb)
-            pending.append([gi, batch, slot, tb, tok, count, phase, widx])
+                staged = N.stage_v2_native(group, slot.device, groups=1,
+                                           binned=False)
+                if staged is None:
+                    refused.append(gi)
+                    continue
+                tok, count, phase, widx = D.entropy_decode(staged.tb)
+            pending.append([gi, staged, slot, tok, count, phase, widx])
         # phase 2: the resolve kernels, each behind its group's entropy;
         # (resolved, err) take the place of (tok, count)
         for p in pending:
-            _, _, slot, tb, tok, count = p[:6]
+            _, staged, slot, tok, count = p[:5]
             with slot.active():
-                p[4:6] = resolve_tokens(tok, count, tb.mlen, tb.max_mlen)
+                p[3:5] = resolve_tokens(tok, count, staged.tb.mlen,
+                                        staged.tb.max_mlen)
         for gi in refused:
             with mesh[0].active():
                 results[gi * gs: gi * gs + len(groups[gi])] = \
                     D.decode_batch_pallas2(groups[gi], device=mesh[0].device)
         # phase 3: ordered fetch, unpack and per-lane host fallback
-        for gi, batch, slot, _, resolved, err, phase, widx in pending:
+        for gi, staged, slot, resolved, err, phase, widx in pending:
             with slot.active():
-                phases = D.host_phases(batch, phase, widx)
-                results[gi * gs: gi * gs + len(groups[gi])] = D.collect_lanes(
-                    batch, groups[gi], phases, resolved, err)
+                results[gi * gs: gi * gs + len(groups[gi])] = \
+                    D.collect_lanes_pinned(staged, groups[gi], resolved, err,
+                                           phase, widx)
     return results  # type: ignore[return-value]
 
 

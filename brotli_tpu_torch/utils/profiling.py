@@ -148,76 +148,111 @@ def phase_report(phases: list[Phase], total_bytes: int | None = None) -> str:
 def profile_e2e_decode(streams: list[bytes],
                        device: torch.device | str = "cuda",
                        groups: int | None = None,
-                       trace_dir: str | Path | None = None):
-    """Per-phase timing of the port's v2 decode round trip on `streams`.
+                       trace_dir: str | Path | None = None,
+                       rounds: int = 5) -> dict:
+    """Per-phase timing of the port's v2 decode round trip on `streams`,
+    its two host halves in turns: "old", the reference's numpy staging
+    (stage_v2, batch_to_torch: eight pageable copies) and unpack
+    (host_phases, collect_lanes); "new", the native staging
+    (preflight2_native.stage_host, to_device: one pinned copy) and the
+    pinned unpack (collect_lanes_pinned).
 
-    Returns (phases, summary).  Phases: the host preflight (host clock),
-    staging H2D, the entropy kernel and the resolve kernel (CUDA events),
-    and the unpack with its device-to-host copy (host clock).  One
-    profiled pass runs first (it also warms up); the summary carries its
-    device busy share and device time per kernel, then the timed pass's
-    bytes, rates and flagged lanes."""
+    Phases of a call: the host preflight (host clock), staging H2D, the
+    entropy kernel and the resolve kernel (CUDA events), the unpack with
+    its device-to-host copies (host clock, after a synchronise), and the
+    whole call's host clock ("round trip").  Each half runs once first
+    (reported apart: it builds the native library and allocates the
+    pinned buffers), then `rounds` times, the two in turns; "best" is each
+    phase's best of those.  Then one profiled call of each: the device's
+    busy share of its host clock and the device time by name (Chrome
+    traces under `trace_dir`/old and /new).  Returns {"bytes",
+    "fallback_lanes", "out" (the new half's first output), "same" (the two
+    halves' first outputs equal), "old": ..., "new": ...}, each half's
+    "first" and "best" phases, "busy", "window_s" and "device_s_by_name"."""
     from ..ops import decode2 as D
+    from ..ops import preflight2_native as N
     from ..ops import resolve as R
 
     dev = _require_card(device)
-    if groups is None:
-        groups = min(D.GROUP_CAP, -(-len(streams) // D.NSTREAM))
-    t0 = time.perf_counter()
-    batch = D.preflight_shared(streams, groups=groups, rate_sort=True)
-    pre_s = time.perf_counter() - t0
-    if batch is None:
-        raise ValueError("streams are not eligible for the shared-table path")
+    root = Path(trace_dir) if trace_dir is not None else DEFAULT_TRACE_DIR
 
-    def chain(mark):
-        tb = D.batch_to_torch(batch, dev)
-        mark()
-        tok, count, phase, widx = D.entropy_decode(tb)
-        mark()
-        resolved, err = R.resolve_tokens(tok, count, tb.mlen, tb.max_mlen)
-        mark()
-        return phase, widx, resolved, err
+    def old_stage():
+        return D.stage_v2(streams, groups)
 
-    def unpack(phase, widx, resolved, err):
-        outs, errs = R.unpack_resolved(resolved, err, batch.mlens)
-        bad = ((phase.cpu().numpy() != D.DONE) | (errs != 0)
-               | D.lane_overran(batch, widx.cpu().numpy()))
-        return outs, int(bad.sum())   # pad lanes (mlen 0) end DONE
+    def new_stage():
+        return N.stage_host(streams, groups, pin=True)
 
-    with trace(trace_dir) as prof:
+    def old_put(batch):
+        return batch, D.batch_to_torch(batch, dev)
+
+    def new_put(hs):
+        staged = N.to_device(hs, dev)
+        return staged, staged.tb
+
+    def old_unpack(batch, outs):
+        resolved, err, phase, widx = outs
+        return D.collect_lanes(batch, streams, D.host_phases(batch, phase, widx),
+                               resolved, err)
+
+    def new_unpack(staged, outs):
+        return D.collect_lanes_pinned(staged, streams, *outs)
+
+    halves = {"old": (old_stage, old_put, old_unpack),
+              "new": (new_stage, new_put, new_unpack)}
+
+    def call(name):
+        stage, put, unpack = halves[name]
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
-        unpack(*chain(lambda: None))
-        window = time.perf_counter() - t0
-    busy = busy_share(prof, window)
-    by_name = device_times(prof)
+        host = stage()
+        if host is None:
+            raise ValueError("the v2 staging refused the streams")
+        t1 = time.perf_counter()
+        ev[0].record()
+        batch, tb = put(host)
+        ev[1].record()
+        tok, count, phase, widx = D.entropy_decode(tb)
+        ev[2].record()
+        resolved, err = R.resolve_tokens(tok, count, tb.mlen, tb.max_mlen)
+        ev[3].record()
+        ev[3].synchronize()
+        t2 = time.perf_counter()
+        out = unpack(batch, (resolved, err, phase, widx))
+        t3 = time.perf_counter()
+        dev_s = [ev[i].elapsed_time(ev[i + 1]) / 1e3 for i in range(3)]
+        phases = [Phase("preflight", t1 - t0, "host",
+                        {"streams": len(streams)}),
+                  Phase("staging H2D", dev_s[0], "device"),
+                  Phase("entropy kernel", dev_s[1], "device"),
+                  Phase("resolve kernel", dev_s[2], "device"),
+                  Phase("unpack + D2H", t3 - t2, "host"),
+                  Phase("round trip", t3 - t0, "host")]
+        return phases, out
 
-    events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-    events[0].record()
-    marks = iter(events[1:])
-    out = chain(lambda: next(marks).record())
-    events[-1].synchronize()
-    t0 = time.perf_counter()
-    _, err_lanes = unpack(*out)
-    unpack_s = time.perf_counter() - t0
-    dev_s = [events[i].elapsed_time(events[i + 1]) / 1e3 for i in range(3)]
-    total = int(batch.mlens.sum())
-    phases = [
-        Phase("preflight", pre_s, "host", {"streams": len(streams)}),
-        Phase("staging H2D", dev_s[0], "device"),
-        Phase("entropy kernel", dev_s[1], "device"),
-        Phase("resolve kernel", dev_s[2], "device"),
-        Phase("unpack + D2H", unpack_s, "host"),
-    ]
-    summary = {
-        "bytes": total,
-        "err_lanes": err_lanes,
-        "kernels_mbps": total / (dev_s[1] + dev_s[2]) / 1e6,
-        "e2e_mbps": total / sum(p.seconds for p in phases) / 1e6,
-        "device_busy": busy,
-        "profiled_window_s": window,
-        "device_s_by_name": by_name,
-    }
-    return phases, summary
+    fb0 = D.fallback_stats()["lanes_fallback"]
+    res: dict[str, dict] = {}
+    outs = {}
+    for name in halves:
+        first, outs[name] = call(name)
+        res[name] = {"first": first, "runs": []}
+    for r in range(rounds):
+        for name in (("old", "new") if r % 2 == 0 else ("new", "old")):
+            res[name]["runs"].append(call(name)[0])
+    for name, rr in res.items():
+        runs = rr.pop("runs")
+        rr["best"] = [dataclasses.replace(ph, seconds=min(
+            run[k].seconds for run in runs)) for k, ph in enumerate(runs[0])]
+        with trace(root / name) as prof:
+            t0 = time.perf_counter()
+            call(name)
+            window = time.perf_counter() - t0
+        rr["busy"] = busy_share(prof, window)
+        rr["window_s"] = window
+        rr["device_s_by_name"] = device_times(prof)
+    return {"bytes": sum(map(len, outs["new"])),
+            "fallback_lanes": D.fallback_stats()["lanes_fallback"] - fb0,
+            "out": outs["new"], "same": outs["old"] == outs["new"], **res}
 
 
 # encode_device_batch's stages as it reports them, and the phase names here

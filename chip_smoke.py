@@ -16,8 +16,11 @@ Phases, in order; any failure raises and the exit code is non-zero:
    above the token slots, an mlen above the slot or 0), whole tensors;
 3. main path -- decode_batch_device_e2e(device="cuda") on the bench's e2e
    shape, 4 groups x 1024 streams x 8192 B = 33.6 MB, must equal the input
-   with no host fallback, and both kernels must have launched (the direct
-   kernels never);
+   with no host fallback, staged once by the native preflight
+   (ops/preflight2_native.stage_v2_native: one pinned buffer, one copy)
+   and never by the numpy one, unpacked through pinned buffers
+   (collect_lanes_pinned), and both kernels must have launched (the
+   direct kernels never);
 4. far distances -- 256 x 8 KB streams encoded without a distance cap (the
    reference's resolve ring flags these) decode with no fallback; both
    resolve kernels timed in turns on their tokens, and the resolve kernel
@@ -130,9 +133,14 @@ Phases, in order; any failure raises and the exit code is non-zero:
 18. probes -- run_probe_v2 at every level and run_probe_v2b at every
    variant of the TPU scripts, launches counted from 0; each kernel's
    outputs held against its plain version bit for bit; ns per row;
-19. profile -- profile_e2e_decode on the main-path batch: per-phase times
-   and the device's busy share from torch.profiler (Chrome trace in
-   brotli_tpu_torch/build/trace/);
+19. profile -- profile_e2e_decode on the main-path batch: the round trip's
+   old host half (the numpy preflight, batch_to_torch, collect_lanes)
+   against the new one (stage_v2_native, collect_lanes_pinned), the first
+   call of each apart, then best of 5 each in turns: preflight, staging
+   H2D, kernels, unpack + D2H and the whole round trip, and each half's
+   device busy share from torch.profiler over one round trip (Chrome
+   traces in brotli_tpu_torch/build/trace/old and /new); the two outputs
+   equal and equal to the input;
 20. multi v2 -- the v2 cell's 4 groups through decode_batches_multichip
    over 4 logical slots (4 CUDA streams on one card): bit-exact, 0
    fallback lanes, 4 entropy and 4 resolve launches; the wall against the
@@ -173,6 +181,7 @@ Phases, in order; any failure raises and the exit code is non-zero:
 
 Each of phases 20-24 sets the launch counters to 0 just before it and
 reads them just after; the kernel line gives them as `multi_launches`.
+Every phase ends with a `[wall] [phase]` line, its host clock.
 Phase 26 sets the DP kernels' counters to 0 just before each main-path
 call of zopfli_commands_device and reads them just after.
 
@@ -422,12 +431,21 @@ def ptxas_report(log: str) -> dict:
 
 
 def phase_build(tag: str) -> None:
+    """nvcc's kernel library and, beside it, g++'s v2 preflight library
+    (the main path's host half, so [main] times no build)."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from brotli_tpu_torch import build
+    from brotli_tpu_torch.ops import preflight2_native
 
     t0 = time.perf_counter()
-    build.kernels_lib()
+    with ThreadPoolExecutor(1) as pool:
+        host = pool.submit(preflight2_native._lib)
+        build.kernels_lib()
+        host.result()
     dt = time.perf_counter() - t0
-    print(f"[build] kernels built and loaded in {dt:.3f} s ({tag})")
+    print(f"[build] kernels and the v2 preflight library built and loaded "
+          f"in {dt:.3f} s ({tag})")
     log = build.last_build_log.get("brotli_tpu_torch_kernels", "")
     for name, lines in sorted(ptxas_report(log).items()):
         short = next((k for k in ("decode2_direct_kernel", "decode2_kernel",
@@ -553,9 +571,12 @@ def main_path_streams() -> tuple[bytes, list[bytes]]:
 
 
 def phase_main_path(data: bytes, streams: list[bytes]) -> dict:
-    """decode_batch_device_e2e on 4 x 1024 x 8 KB, counting launches."""
+    """decode_batch_device_e2e on 4 x 1024 x 8 KB, counting launches; the
+    batch staged by the native preflight (stage_v2_native, once), never by
+    the numpy one."""
     import brotli_tpu_torch
     from brotli_tpu_torch.ops import decode2 as D
+    from brotli_tpu_torch.ops import preflight2_native as N
     from brotli_tpu_torch.ops import resolve as R
 
     batch = streams * GROUPS
@@ -565,14 +586,21 @@ def phase_main_path(data: bytes, streams: list[bytes]) -> dict:
     R.KERNEL_LAUNCHES = 0
     D.DIRECT_LAUNCHES = 0
     R.DIRECT_LAUNCHES = 0
-    t0 = time.perf_counter()
-    got = brotli_tpu_torch.decode_batch_device_e2e(batch, device="cuda",
-                                                   groups=GROUPS)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
+    with spied(N, "stage_v2_native") as (_, native), \
+            spied(D, "preflight_shared", "preflight_binned") as (_, numpy_):
+        t0 = time.perf_counter()
+        got = brotli_tpu_torch.decode_batch_device_e2e(batch, device="cuda",
+                                                       groups=GROUPS)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
     launches = {"entropy": D.KERNEL_LAUNCHES, "resolve": R.KERNEL_LAUNCHES}
     check(D.DIRECT_LAUNCHES == 0 and R.DIRECT_LAUNCHES == 0,
           "the main path launched a direct kernel")
+    check(len(native["stage_v2_native"]) == 1
+          and not any(numpy_.values()),
+          "the main path did not stage through stage_v2_native alone")
+    staged = native["stage_v2_native"][0][1]
+    del native, numpy_
     fell = brotli_tpu_torch.fallback_stats()["lanes_fallback"] - fb0
     check(len(got) == len(batch), "wrong number of outputs")
     check(b"".join(got) == expect, "main-path output differs from the input")
@@ -580,8 +608,10 @@ def phase_main_path(data: bytes, streams: list[bytes]) -> dict:
     check(launches["entropy"] >= 1 and launches["resolve"] >= 1,
           f"a kernel of the path never launched: {launches}")
     print(f"[main] {len(expect)} B decoded bit-exact through device='cuda', "
-          f"0 fallback lanes, launches {launches}; whole call {dt:.3f} s "
-          "(host clock: preflight, copies, kernels, unpack)")
+          f"staged by stage_v2_native ({staged.groups} groups, Wpad "
+          f"{staged.tb.wpad}), 0 fallback lanes, launches {launches}; whole "
+          f"call {dt:.3f} s (host clock: preflight, copies, kernels, unpack; "
+          "the path's first call)")
     return launches
 
 
@@ -1942,8 +1972,8 @@ def phase_caps_sparse(data: bytes, card_str: str) -> None:
     from brotli_tpu_torch.ops import decode3 as D3
     from brotli_tpu_torch.ops import resolve as R
 
-    def v2_ms(batch):
-        tb = D.batch_to_torch(batch, "cuda")
+    def v2_ms(staged):
+        tb = staged.tb
 
         def both():
             tok, count, _, _ = D.entropy_decode(tb)
@@ -1955,7 +1985,7 @@ def phase_caps_sparse(data: bytes, card_str: str) -> None:
                      lambda: st.__setitem__("o", R.resolve_tokens_direct(*args)))
         err = max_abs_err(st["n"], st["o"])
         check(err == 0, f"sparse v2: resolve kernel != direct kernel ({err})")
-        print(f"[caps sparse] {card_str}: v2 round of {batch.groups} groups: "
+        print(f"[caps sparse] {card_str}: v2 round of {staged.groups} groups: "
               f"resolve kernel {turns_str(t)}, equal to the direct kernel's "
               "output bit for bit")
         return ms
@@ -2383,23 +2413,42 @@ def phase_probes(card_str: str) -> dict:
     return res
 
 
-def phase_profile(streams: list[bytes], card_str: str) -> None:
-    """profile_e2e_decode on the main-path batch (4 x 1024 x 8 KB)."""
+def phase_profile(data: bytes, streams: list[bytes], card_str: str) -> None:
+    """profile_e2e_decode on the main-path batch (4 x 1024 x 8 KB): the
+    reference's numpy host half against the native one, in turns."""
     from brotli_tpu_torch.utils.profiling import phase_report, profile_e2e_decode
 
-    phases, summ = profile_e2e_decode(streams * GROUPS, "cuda", groups=GROUPS)
-    check(summ["err_lanes"] == 0, f"{summ['err_lanes']} lanes flagged")
-    for line in phase_report(phases, summ["bytes"]).splitlines():
-        print(f"[profile] {card_str}: {line}")
-    busy = summ["device_busy"]
-    top = sorted(summ["device_s_by_name"].items(), key=lambda kv: -kv[1])[:4]
-    top_s = "; ".join(f"{k.split('(')[0]} {v * 1e3:.4f} ms" for k, v in top)
-    print(f"[profile] {card_str}: device busy share "
-          f"{'not measured' if busy is None else f'{busy:.4f}'} of the "
-          f"profiled pass ({summ['profiled_window_s'] * 1e3:.3f} ms host "
-          f"clock; torch.profiler device time over it); kernels "
-          f"{summ['kernels_mbps']:.2f} MB/s, whole round trip "
-          f"{summ['e2e_mbps']:.2f} MB/s; top device time: {top_s}")
+    rep = profile_e2e_decode(streams * GROUPS, "cuda", groups=GROUPS)
+    check(rep["fallback_lanes"] == 0,
+          f"{rep['fallback_lanes']} lanes fell back to the host decoder")
+    check(rep["same"], "the old and the new host halves' outputs differ")
+    check(b"".join(rep["out"]) == data * GROUPS,
+          "the round trip's output differs from the input")
+    total = rep["bytes"]
+    for name, what in (("old", "numpy preflight, batch_to_torch, "
+                                "collect_lanes"),
+                       ("new", "stage_v2_native (one pinned copy), "
+                                "collect_lanes_pinned")):
+        r = rep[name]
+        for when in ("first", "best"):
+            label = ("first call" if when == "first"
+                     else "best of 5, in turns with the other half")
+            print(f"[profile] {card_str}: {name} host half ({what}), {label}:")
+            for line in phase_report(r[when], total).splitlines():
+                print(f"[profile] {card_str}:   {name} {line}")
+        busy = r["busy"]
+        top = sorted(r["device_s_by_name"].items(), key=lambda kv: -kv[1])[:4]
+        top_s = "; ".join(f"{k.split('(')[0]} {v * 1e3:.4f} ms" for k, v in top)
+        best = {p.name: p.seconds for p in r["best"]}
+        print(f"[profile] {card_str}: {name}: device busy share "
+              f"{'not measured' if busy is None else f'{busy:.4f}'} of a "
+              f"profiled round trip ({r['window_s'] * 1e3:.3f} ms host "
+              f"clock, preflight included; torch.profiler device time over "
+              f"it); kernels {total / (best['entropy kernel'] + best['resolve kernel']) / 1e6:.2f} "
+              f"MB/s, best round trip {total / best['round trip'] / 1e6:.2f} "
+              f"MB/s; top device time: {top_s}")
+    print(f"[profile] {card_str}: old and new outputs equal, "
+          f"{total} B, 0 fallback lanes")
 
 
 # ---------------------------------------------------------------------------
@@ -2608,60 +2657,67 @@ def main() -> int:
     t_run = time.perf_counter()
     card_str = card()
     print(f"[card] {card_str}")
-    phase_build(card_str)
-    errs = phase_kernel_vs_plain()
-    probes = phase_probes(card_str)
-    data, streams = main_path_streams()
-    launches = phase_main_path(data, streams)
-    far = phase_far(card_str)
-    times = phase_times(streams, card_str)
-    phase_resolve_synthetic(card_str)
-    phase_profile(streams, card_str)
-    enc_err = phase_enc_kernel_vs_plain()
-    phase_enc_card_vs_cpu()
+
+    def walled(tag, fn, *args):
+        """fn(*args), then its host-clock wall as a [wall] line."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        print(f"[wall] [{tag}] {time.perf_counter() - t0:.3f} s ({card_str})")
+        return out
+
+    walled("build", phase_build, card_str)
+    errs = walled("kernel==plain", phase_kernel_vs_plain)
+    probes = walled("probe", phase_probes, card_str)
+    data, streams = walled("main encode", main_path_streams)
+    launches = walled("main", phase_main_path, data, streams)
+    far = walled("far", phase_far, card_str)
+    times = walled("times", phase_times, streams, card_str)
+    walled("synthetic", phase_resolve_synthetic, card_str)
+    walled("profile", phase_profile, data, streams, card_str)
+    enc_err = walled("enc kernel==plain", phase_enc_kernel_vs_plain)
+    walled("enc card==cpu", phase_enc_card_vs_cpu)
     enc_data = corpus(1024 * ENC_CHUNK)
-    enc_launches, enc_seen = phase_enc_main(enc_data, card_str)
-    parse = phase_parse_kernel_vs_plain(enc_data, card_str)
-    mr = phase_match_record_kernels(enc_data, card_str)
-    enc_times = phase_enc_times(enc_seen, card_str)
+    enc_launches, enc_seen = walled("enc main", phase_enc_main, enc_data,
+                                    card_str)
+    parse = walled("parse kernel==plain", phase_parse_kernel_vs_plain,
+                   enc_data, card_str)
+    mr = walled("matches/records kernel==plain", phase_match_record_kernels,
+                enc_data, card_str)
+    enc_times = walled("enc times", phase_enc_times, enc_seen, card_str)
     del enc_seen
-    bench_err, bench_launches = phase_enc_bench(enc_data, card_str)
+    bench_err, bench_launches = walled("enc bench-config", phase_enc_bench,
+                                       enc_data, card_str)
     del enc_data
-    v3_err = phase_v3_kernel_vs_plain(card_str)
-    v3_data, v3_streams, v3_enc_launches = v3_main_streams(card_str)
-    v3_launches, v3_batch = phase_v3_main(v3_data, v3_streams, card_str)
+    v3_err = walled("v3 kernel==plain", phase_v3_kernel_vs_plain, card_str)
+    v3_data, v3_streams, v3_enc_launches = walled("v3 encode",
+                                                  v3_main_streams, card_str)
+    v3_launches, v3_batch = walled("v3 main", phase_v3_main, v3_data,
+                                   v3_streams, card_str)
     # each lane's expected bytes, in the staged batch's lane order
     v3_rows = torch.frombuffer(bytearray(v3_data), dtype=torch.uint8).view(
         -1, V3_BENCH["chunk_size"])[torch.from_numpy(v3_batch.perm)].cuda()
     # the first 2,048 streams and their bytes for [multi v3]
     v3_multi = (v3_data[:2048 * V3_BENCH["chunk_size"]], v3_streams[:2048])
     del v3_data, v3_streams
-    v3_times = phase_v3_times(v3_batch, card_str)
+    v3_times = walled("v3 times", phase_v3_times, v3_batch, card_str)
     del v3_batch
-    bt_launches = phase_v3_block_types(card_str)
-    phase_v3_full(card_str)
-    phase_caps(data, streams, v3_times.pop("tb"), v3_rows, card_str)
+    bt_launches = walled("v3 block types", phase_v3_block_types, card_str)
+    walled("v3 full", phase_v3_full, card_str)
+    walled("caps", phase_caps, data, streams, v3_times.pop("tb"), v3_rows,
+           card_str)
     del v3_rows
-    phase_caps_sparse(data, card_str)
+    walled("caps sparse", phase_caps_sparse, data, card_str)
     # the scale-out layer: each phase counts its launches from 0
-    multi = {}
-    for tag, run in (("multi v2", lambda: phase_multi_v2(data, streams,
-                                                          card_str)),
-                     ("multi enc", lambda: phase_multi_enc(card_str)),
-                     ("multi v3", lambda: phase_multi_v3(*v3_multi,
-                                                         card_str))):
-        t0 = time.perf_counter()
-        multi[tag] = run()
-        print(f"[wall] [{tag}] {time.perf_counter() - t0:.3f} s ({card_str})")
+    multi = {
+        "multi v2": walled("multi v2", phase_multi_v2, data, streams,
+                           card_str),
+        "multi enc": walled("multi enc", phase_multi_enc, card_str),
+        "multi v3": walled("multi v3", phase_multi_v3, *v3_multi, card_str)}
     del v3_multi
-    for tag, run in (("multihost", phase_multihost), ("dryrun", phase_dryrun)):
-        t0 = time.perf_counter()
-        run(card_str)
-        print(f"[wall] [{tag}] {time.perf_counter() - t0:.3f} s ({card_str})")
-    phase_entry()
-    t0 = time.perf_counter()
-    zopfli = phase_zopfli(card_str)
-    print(f"[wall] [zopfli] {time.perf_counter() - t0:.3f} s ({card_str})")
+    walled("multihost", phase_multihost, card_str)
+    walled("dryrun", phase_dryrun, card_str)
+    walled("entry", phase_entry)
+    zopfli = walled("zopfli", phase_zopfli, card_str)
     check_no_reference_imports()
 
     def row(name, source, replaces, n, err, ms, plain, bound):

@@ -76,6 +76,7 @@ FILE_SECONDS = {
     "tests/test_pallas_decode3.py": 33.02,
     "tests/test_torch_schedule.py": 23.42,
     "tests/test_torch_probe.py": 22.34,
+    "tests/test_torch_preflight2_native.py": 14.82,
     "tests/test_torch_zopfli_step.py": 7.76,
     "tests/test_torch_encode_kernels.py": 2.04,
     "tests/test_torch_encode_split.py": 1.64,

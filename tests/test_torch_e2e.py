@@ -24,6 +24,7 @@ from brotli_tpu.encode.sharded import encode_sharded
 from brotli_tpu.ops import pallas_decode2 as P2
 from brotli_tpu_torch.device import resolve_device
 from brotli_tpu_torch.ops import decode2 as D
+from brotli_tpu_torch.ops import preflight2_native as N
 from brotli_tpu_torch.ops import resolve as R
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -53,13 +54,23 @@ def _slice():
     return data, streams, jax_out, P2.fallback_stats()["lanes_fallback"] - before
 
 
-def test_slice_matches_jax():
-    """encode_sharded -> both decode round trips: same bytes, no fallback."""
+def test_slice_matches_jax(monkeypatch):
+    """encode_sharded -> both decode round trips: same bytes, no fallback;
+    the port's batch staged once by the native preflight and never by the
+    numpy one."""
     data, streams, jax_out, jax_fell = _slice()
+    staged, numpy_staged = [], []
+    native = N.stage_v2_native
+    monkeypatch.setattr(N, "stage_v2_native",
+                        lambda *a, **k: staged.append(native(*a, **k))
+                        or staged[-1])
+    for name in ("preflight_shared", "preflight_binned"):
+        monkeypatch.setattr(D, name, lambda *a, **k: numpy_staged.append(a))
     port_out, port_fell = _port_decode(streams)
     assert jax_out == port_out
     assert b"".join(port_out) == data
     assert jax_fell == 0 and port_fell == 0
+    assert len(staged) == 1 and staged[0] is not None and not numpy_staged
 
 
 def test_reference_cap_matches_jax():

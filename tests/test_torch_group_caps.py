@@ -9,36 +9,54 @@ import inspect
 import brotli_tpu_torch
 from brotli_tpu_torch.ops import decode2 as D2
 from brotli_tpu_torch.ops import decode3 as D3
+from brotli_tpu_torch.ops import preflight2_native as N2
 
 
 def _stub_v2(monkeypatch) -> dict:
     seen = {}
 
-    def shared(streams, groups=1, rate_sort=False):
+    def stage(streams, device, groups=None, binned=True):
         seen["shared"] = groups
+        seen["binned"] = N2.GROUP_CAP if binned else None
         return None
 
-    def binned(streams, max_groups=None):
-        seen["binned"] = max_groups
-        return None
-
-    monkeypatch.setattr(D2, "preflight_shared", shared)
-    monkeypatch.setattr(D2, "preflight_binned", binned)
+    monkeypatch.setattr(N2, "stage_v2_native", stage)
     monkeypatch.setattr(D2, "host_decode", lambda s: b"")
     return seen
 
 
 def test_v2_driver_takes_the_port_cap(monkeypatch):
-    """decode_batch_device_e2e stages at most GROUP_CAP groups, and hands
-    GROUP_CAP to preflight_binned as max_groups."""
+    """decode_batch_device_e2e stages at most GROUP_CAP groups: its native
+    staging takes the call's groups as preflight_shared's and the port's
+    GROUP_CAP as preflight_binned's max_groups."""
     seen = _stub_v2(monkeypatch)
+    assert N2.GROUP_CAP is D2.GROUP_CAP
     many = [b"x"] * (D2.GROUP_CAP * 1024 + 1)
     assert D2.decode_batch_device_e2e(many, device="cpu") == [b""] * len(many)
-    assert seen == {"shared": D2.GROUP_CAP, "binned": D2.GROUP_CAP}
-    D2.decode_batch_device_e2e([b"x"] * 3000, device="cpu")
-    assert seen == {"shared": 3, "binned": D2.GROUP_CAP}
+    assert seen == {"shared": None, "binned": D2.GROUP_CAP}
     D2.decode_batch_device_e2e([b"x"] * 3000, device="cpu", groups=12)
     assert seen == {"shared": 12, "binned": D2.GROUP_CAP}
+    # the default groups: the streams' own, at most GROUP_CAP
+    monkeypatch.undo()
+    shared = []
+    monkeypatch.setattr(N2, "_lib", lambda: _Refuse(shared))
+    assert N2.stage_host([b"x"] * (D2.GROUP_CAP * 1024 + 1)) is None
+    assert N2.stage_host([b"x"] * 3000) is None
+    assert shared == [D2.GROUP_CAP, 3]
+
+
+class _Refuse:
+    """A stand-in for the native library whose plan records
+    preflight_shared's groups and group cap, and refuses the batch."""
+
+    def __init__(self, shared):
+        self.shared = shared
+
+    def brotli_v2_plan(self, data, lens, n, groups, group_cap,
+                       binned, *rest):
+        assert group_cap == D2.GROUP_CAP and binned == 1
+        self.shared.append(groups)
+        return 0
 
 
 def test_v3_drivers_default_to_the_port_cap(monkeypatch):
