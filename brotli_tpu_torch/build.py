@@ -59,7 +59,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _DECODE2_DIRECT_ARGS = [_P] * 12 + [_I] * 9
 _DECODE2_ARGS = _DECODE2_DIRECT_ARGS + [_I]           # + lanes a warp
-_DECODE3_DIRECT_ARGS = [_P] * 17 + [_I] * 9
+_DECODE3_DIRECT_ARGS = [_P] * 17 + [_I] * 10         # ... group lanes
 _DECODE3_ARGS = _DECODE3_DIRECT_ARGS + [_I] * 3       # + lanes a warp,
                                                       # window, table budget
 _RESOLVE_DIRECT_ARGS = [_P] * 5 + [_I, _I, ctypes.c_longlong]

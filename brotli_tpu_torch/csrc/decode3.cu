@@ -36,8 +36,7 @@
 
 namespace brotli_torch {
 
-constexpr int DECODE3_BLOCK = 128;  // divides the 1024 lanes of a group
-constexpr int GROUP3_LANES = 1024;
+constexpr int DECODE3_BLOCK = 128;  // divides the lanes of a group
 constexpr int WARPS3 = 4;           // warps a block of decode3_kernel
 constexpr i32 BSW3_N = (3 * BTCH3 + 3 * BLCH3) * 128;
 
@@ -51,7 +50,8 @@ decode3_direct_kernel(const u32* __restrict__ wt, const i32* __restrict__ lit,
                       const u8* __restrict__ cdict, const i32* __restrict__ cfg,
                       const i32* __restrict__ scal, u8* __restrict__ out,
                       i32* __restrict__ status, int n_lanes, int wpad,
-                      int out_cap, int hrb, Decode3Shared S) {
+                      int out_cap, int hrb, int group_lanes,
+                      Decode3Shared S) {
   const int lane = blockIdx.x * DECODE3_BLOCK + threadIdx.x;
   if (lane >= n_lanes) return;
   S.consts = consts;
@@ -60,7 +60,7 @@ decode3_direct_kernel(const u32* __restrict__ wt, const i32* __restrict__ lit,
   S.dict = dict;
   S.tfs = tfs;
   S.cdict = cdict;
-  const Decode3Group G = make_group3(cfg + (lane / GROUP3_LANES) * NCFG3, lit,
+  const Decode3Group G = make_group3(cfg + (lane / group_lanes) * NCFG3, lit,
                                      cmd, dist, bsw, cmap, dx);
   const i64 stride = (i64)hrb + out_cap;
   const Decode3Lane L{wt + lane, n_lanes, wpad, scal + lane, n_lanes,
@@ -88,8 +88,8 @@ decode3_kernel(const u32* __restrict__ wt, const i32* lit, const i32* cmd,
                const u8* __restrict__ tfs, const u8* __restrict__ cdict,
                const i32* __restrict__ cfg, const i32* __restrict__ scal,
                u8* out, i32* __restrict__ status, int n_lanes, int wpad,
-               int out_cap, int hrb, Decode3Shared S, int lpw, int win,
-               int tab_ints) {
+               int out_cap, int hrb, int group_lanes, Decode3Shared S,
+               int lpw, int win, int tab_ints) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int lpb = lpw * WARPS3;
   const int lane0 = blockIdx.x * lpb;
@@ -97,7 +97,8 @@ decode3_kernel(const u32* __restrict__ wt, const i32* lit, const i32* cmd,
   u32* s_q = (u32*)(smem + (i64)lpb * win);
   i32* s_tab = (i32*)(s_q + QUEUE_R * lpb);
 
-  Decode3Group G = make_group3(cfg + (lane0 / GROUP3_LANES) * NCFG3, lit,
+  // a block's lanes lie in one group (launch_shape_ok)
+  Decode3Group G = make_group3(cfg + (lane0 / group_lanes) * NCFG3, lit,
                                cmd, dist, bsw, cmap, dx);
   i32 used = 0;
   S.consts = stage_table(consts, CONSTS3_N, s_tab, used, tab_ints);
@@ -129,18 +130,23 @@ decode3_kernel(const u32* __restrict__ wt, const i32* lit, const i32* cmd,
   decode3_lane_windowed(S, G, L, O);
 }
 
-static bool launch_shape_ok(int n_lanes, int lpw) {
+// every block inside one group: lpw * WARPS3 divides the group's lanes
+static bool launch_shape_ok(int group_lanes, int lpw) {
   return lpw >= 1 && lpw <= 32 && (lpw & (lpw - 1)) == 0 &&
-         n_lanes % (lpw * WARPS3) == 0;
+         group_lanes % (lpw * WARPS3) == 0;
 }
 
 }  // namespace brotli_torch
 
 using namespace brotli_torch;
 
+// whole groups of group_lanes lanes, each a whole number of the direct
+// kernel's blocks
 static bool decode3_args_ok(int n_lanes, int wpad, int out_cap, int hrb,
-                            int dict_n, int tfs_n, int cd_n, int cd_t) {
-  return n_lanes > 0 && n_lanes % GROUP3_LANES == 0 && wpad >= 1 &&
+                            int dict_n, int tfs_n, int cd_n, int cd_t,
+                            int group_lanes) {
+  return group_lanes > 0 && group_lanes % DECODE3_BLOCK == 0 &&
+         n_lanes > 0 && n_lanes % group_lanes == 0 && wpad >= 1 &&
          out_cap >= 1 && hrb >= 0 && dict_n >= 1 && tfs_n >= 1 && cd_n >= 1 &&
          cd_t >= 0 && cd_t <= cd_n;
 }
@@ -157,16 +163,19 @@ static Decode3Shared decode3_shared(int dict_n, int tfs_n, int cd_n, int cd_t,
 }
 
 // Launch on `stream`; returns cudaGetLastError() (0 on success).
-// n_lanes must be a multiple of 1024 (whole groups); out is
-// (n_lanes, hrb + out_cap) bytes with each lane's prefix already in place.
+// Lane l decodes with group l / group_lanes's config row; n_lanes must be
+// whole groups, and group_lanes a multiple of 128; out is (n_lanes, hrb +
+// out_cap) bytes with each lane's prefix already in place.
 extern "C" int brotli_torch_decode3_direct(
     const void* wt, const void* lit, const void* cmd, const void* dist,
     const void* bsw, const void* cmap, const void* dx, const void* consts,
     const void* lut, const void* tfm, const void* dict, const void* tfs,
     const void* cdict, const void* cfg, const void* scal, void* out,
     void* status, int n_lanes, int wpad, int out_cap, int hrb, int dict_n,
-    int tfs_n, int cd_n, int cd_t, int use_dict, void* stream) {
-  if (!decode3_args_ok(n_lanes, wpad, out_cap, hrb, dict_n, tfs_n, cd_n, cd_t))
+    int tfs_n, int cd_n, int cd_t, int use_dict, int group_lanes,
+    void* stream) {
+  if (!decode3_args_ok(n_lanes, wpad, out_cap, hrb, dict_n, tfs_n, cd_n, cd_t,
+                       group_lanes))
     return (int)cudaErrorInvalidValue;
   decode3_direct_kernel<<<n_lanes / DECODE3_BLOCK, DECODE3_BLOCK, 0,
                           (cudaStream_t)stream>>>(
@@ -174,26 +183,27 @@ extern "C" int brotli_torch_decode3_direct(
       (const i32*)bsw, (const i32*)cmap, (const i32*)dx, (const i32*)consts,
       (const i32*)lut, (const i32*)tfm, (const u8*)dict, (const u8*)tfs,
       (const u8*)cdict, (const i32*)cfg, (const i32*)scal, (u8*)out,
-      (i32*)status, n_lanes, wpad, out_cap, hrb,
+      (i32*)status, n_lanes, wpad, out_cap, hrb, group_lanes,
       decode3_shared(dict_n, tfs_n, cd_n, cd_t, use_dict));
   return (int)cudaGetLastError();
 }
 
 // The same, through decode3_kernel: `lpw` lanes a warp (a power of two up
-// to 32), a window of `win` bytes a lane (a power of two >= 64) and
-// `tab_ints` table entries a block.  `out` must be 16-byte aligned.
+// to 32, lpw * 4 dividing group_lanes), a window of `win` bytes a lane (a
+// power of two >= 64) and `tab_ints` table entries a block.  `out` must be
+// 16-byte aligned.
 extern "C" int brotli_torch_decode3(
     const void* wt, const void* lit, const void* cmd, const void* dist,
     const void* bsw, const void* cmap, const void* dx, const void* consts,
     const void* lut, const void* tfm, const void* dict, const void* tfs,
     const void* cdict, const void* cfg, const void* scal, void* out,
     void* status, int n_lanes, int wpad, int out_cap, int hrb, int dict_n,
-    int tfs_n, int cd_n, int cd_t, int use_dict, int lpw, int win,
-    int tab_ints, void* stream) {
+    int tfs_n, int cd_n, int cd_t, int use_dict, int group_lanes, int lpw,
+    int win, int tab_ints, void* stream) {
   if (!decode3_args_ok(n_lanes, wpad, out_cap, hrb, dict_n, tfs_n, cd_n,
-                       cd_t) ||
-      !launch_shape_ok(n_lanes, lpw) || win < 64 || (win & (win - 1)) != 0 ||
-      tab_ints < 0 || ((uintptr_t)out & 15) != 0)
+                       cd_t, group_lanes) ||
+      !launch_shape_ok(group_lanes, lpw) || win < 64 ||
+      (win & (win - 1)) != 0 || tab_ints < 0 || ((uintptr_t)out & 15) != 0)
     return (int)cudaErrorInvalidValue;
   const int lpb = lpw * WARPS3;
   const size_t smem = (size_t)lpb * win + (size_t)QUEUE_R * lpb * 4 +
@@ -207,7 +217,7 @@ extern "C" int brotli_torch_decode3(
       (const i32*)bsw, (const i32*)cmap, (const i32*)dx, (const i32*)consts,
       (const i32*)lut, (const i32*)tfm, (const u8*)dict, (const u8*)tfs,
       (const u8*)cdict, (const i32*)cfg, (const i32*)scal, (u8*)out,
-      (i32*)status, n_lanes, wpad, out_cap, hrb,
+      (i32*)status, n_lanes, wpad, out_cap, hrb, group_lanes,
       decode3_shared(dict_n, tfs_n, cd_n, cd_t, use_dict), lpw, win,
       tab_ints);
   return (int)cudaGetLastError();

@@ -90,9 +90,13 @@ extern "C" int brotli_torch_decode2_host(
   return 0;
 }
 
+// decode3.cu's decode3_args_ok: whole groups of group_lanes lanes, each a
+// whole number of 128-lane blocks
 static bool decode3_host_ok(int n_lanes, int wpad, int out_cap, int hrb,
-                            int dict_n, int tfs_n, int cd_n, int cd_t) {
-  return n_lanes > 0 && n_lanes % 1024 == 0 && wpad >= 1 && out_cap >= 1 &&
+                            int dict_n, int tfs_n, int cd_n, int cd_t,
+                            int group_lanes) {
+  return group_lanes > 0 && group_lanes % 128 == 0 && n_lanes > 0 &&
+         n_lanes % group_lanes == 0 && wpad >= 1 && out_cap >= 1 &&
          hrb >= 0 && dict_n >= 1 && tfs_n >= 1 && cd_n >= 1 && cd_t >= 0 &&
          cd_t <= cd_n;
 }
@@ -123,15 +127,16 @@ extern "C" int brotli_torch_decode3_direct_host(
     const void* lut, const void* tfm, const void* dict, const void* tfs,
     const void* cdict, const void* cfg, const void* scal, void* out,
     void* status, int n_lanes, int wpad, int out_cap, int hrb, int dict_n,
-    int tfs_n, int cd_n, int cd_t, int use_dict) {
-  if (!decode3_host_ok(n_lanes, wpad, out_cap, hrb, dict_n, tfs_n, cd_n, cd_t))
+    int tfs_n, int cd_n, int cd_t, int use_dict, int group_lanes) {
+  if (!decode3_host_ok(n_lanes, wpad, out_cap, hrb, dict_n, tfs_n, cd_n, cd_t,
+                       group_lanes))
     return 1;
   const Decode3Shared S = decode3_host_shared(
       consts, lut, tfm, dict, tfs, cdict, dict_n, tfs_n, cd_n, cd_t, use_dict);
   const i64 stride = (i64)hrb + out_cap;
   for (int lane = 0; lane < n_lanes; ++lane) {
     const Decode3Group G = make_group3(
-        (const i32*)cfg + (lane / 1024) * NCFG3, (const i32*)lit,
+        (const i32*)cfg + (lane / group_lanes) * NCFG3, (const i32*)lit,
         (const i32*)cmd, (const i32*)dist, (const i32*)bsw, (const i32*)cmap,
         (const i32*)dx);
     const Decode3Lane L{(const u32*)wt + lane, n_lanes, wpad,
@@ -153,11 +158,12 @@ extern "C" int brotli_torch_decode3_host(
     const void* lut, const void* tfm, const void* dict, const void* tfs,
     const void* cdict, const void* cfg, const void* scal, void* out,
     void* status, int n_lanes, int wpad, int out_cap, int hrb, int dict_n,
-    int tfs_n, int cd_n, int cd_t, int use_dict, int lpw, int win,
-    int tab_ints) {
+    int tfs_n, int cd_n, int cd_t, int use_dict, int group_lanes, int lpw,
+    int win, int tab_ints) {
   if (!decode3_host_ok(n_lanes, wpad, out_cap, hrb, dict_n, tfs_n, cd_n,
-                       cd_t) ||
-      lpw < 1 || lpw > 32 || (lpw & (lpw - 1)) != 0 || win < 64 ||
+                       cd_t, group_lanes) ||
+      lpw < 1 || lpw > 32 || (lpw & (lpw - 1)) != 0 ||
+      group_lanes % (4 * lpw) != 0 || win < 64 ||
       (win & (win - 1)) != 0 || tab_ints < 0 || ((uintptr_t)out & 15) != 0)
     return 1;
   const Decode3Shared S = decode3_host_shared(
@@ -167,7 +173,7 @@ extern "C" int brotli_torch_decode3_host(
   u32 q[QUEUE_R];
   for (int lane = 0; lane < n_lanes; ++lane) {
     const Decode3Group G = make_group3(
-        (const i32*)cfg + (lane / 1024) * NCFG3, (const i32*)lit,
+        (const i32*)cfg + (lane / group_lanes) * NCFG3, (const i32*)lit,
         (const i32*)cmd, (const i32*)dist, (const i32*)bsw, (const i32*)cmap,
         (const i32*)dx);
     u8* slot = (u8*)out + (i64)lane * stride;

@@ -1,25 +1,30 @@
 """v3 full-format decode.  Counterpart of brotli_tpu/ops/pallas_decode3.py.
 
-The host half: ops/preflight3_native.py parses each stream's metablock
-header and tables in C++ (native/preflight3.cpp) and bins the streams by
-their tables into groups of 1024 lanes (`V3Batch`, numpy).  The port's copy
-of the reference's Python preflight (ops/preflight3.py: `preflight_v3`,
-`assemble_v3`) stays as its yardstick; its key also holds each stream's
-initial block lengths, so it can make more groups.  `batch_to_torch_v3`
-turns that staging into the port's tensors and `decode3` runs one kernel
-(csrc/decode3.cu `decode3_kernel`) that decodes every lane's metablock,
-entropy and LZ together, through a window in shared memory into the
-lane's own output slot (`launch_config` sizes its lane map, window and
-table staging from the card).  `decode3_direct` launches the first form
-of the kernel, kept beside it for comparison.
+The host half: ops/stage3_native.py plans each batch in C++
+(native/preflight3.cpp: each stream's or metablock's tables parsed, the
+units binned by their tables into groups of `width` lanes, 128 by
+default) and fills the port's tensors into one pinned buffer, which goes
+to the card in one copy (`StagedV3`); `collect_lanes_v3_pinned` brings
+the bytes and status rows back through pinned buffers.  The yardstick
+stays: ops/preflight3_native.py (the same parse, staged in numpy in the
+TPU's layout, `V3Batch`) with `batch_to_torch_v3` and `_lanes`, and the
+port's copy of the reference's Python preflight (ops/preflight3.py:
+`preflight_v3`, `assemble_v3`), whose key also holds each stream's
+initial block lengths, so it can make more groups.  `decode3` runs one
+kernel (csrc/decode3.cu `decode3_kernel`) that decodes every lane's
+metablock, entropy and LZ together, through a window in shared memory
+into the lane's own output slot (`launch_config` sizes its lane map,
+window and table staging from the card).  `decode3_direct` launches the
+first form of the kernel, kept beside it for comparison.
 
 Drivers: `decode_batch_v3` (single-metablock streams) and
 `decode_batch_v3_full` (any stream: the host walks the metablock headers and
 decodes each compressed metablock on the device, carrying the earlier
-output, the distance ring and the last two bytes).  Lanes the kernel flags
-are re-decoded on the host and counted in `fallback_stats()`.
+output, kept on the device between rounds, the distance ring and the
+last two bytes).  Lanes the kernel flags are re-decoded on the host and
+counted in `fallback_stats()`.
 
-Layout: lane l = g*1024 + s is stream slot s of group g.  Words are an
+Layout: lane l = g*width + s is stream slot s of group g.  Words are an
 int32 (Wpad, n_lanes) tensor of u32 bit patterns, word-major; tables are
 flat int32 tensors, each group's at the offsets of its config row; the
 output is (n_lanes, hrb + out_cap) uint8, slot-major: hrb bytes of earlier
@@ -65,13 +70,6 @@ from .preflight3 import (
     _dict_chunks,
     _lcmch,
     _transform_tables,
-)
-from .preflight3_native import (
-    V3Units,
-    preflight_units_v3_native,
-    preflight_v3_native,
-    stage_streams,
-    walk_units,
 )
 
 # Launches of the CUDA kernels, counted by the wrappers where they launch:
@@ -130,10 +128,11 @@ class V3TorchBatch:
     out_cap: int           # output bytes per lane after the prefix
     max_mlen: int
     cd_t: int              # compound dictionary size
+    width: int = NSTREAM   # lanes a group: lane l takes group l // width
 
     @property
     def n_lanes(self) -> int:
-        return self.groups * NSTREAM
+        return self.groups * self.width
 
     @property
     def wpad(self) -> int:
@@ -262,6 +261,9 @@ def batch_to_torch_v3(batch: V3Batch, device: torch.device | str,
 
 
 def _check_batch(tb: V3TorchBatch) -> None:
+    if tb.width < 1 or tb.width % 128:
+        raise ValueError(f"width {tb.width}: want a multiple of 128 (the "
+                         "kernels' blocks lie in one group)")
     n = tb.n_lanes
     i32, u8 = torch.int32, torch.uint8
     want = {
@@ -331,7 +333,8 @@ def _c_args(tb: V3TorchBatch, out, status, use_dict: bool) -> list:
             tb.scal, out, status)
     return ([t.data_ptr() for t in ptrs]
             + [tb.n_lanes, tb.wpad, tb.out_cap, tb.hrb, tb.dict.numel(),
-               tb.tfs.numel(), tb.cdict.numel(), tb.cd_t, int(use_dict)])
+               tb.tfs.numel(), tb.cdict.numel(), tb.cd_t, int(use_dict),
+               tb.width])
 
 
 def _table_sizes(cfg: np.ndarray) -> np.ndarray:
@@ -496,7 +499,7 @@ def decode3_ref(tb: V3TorchBatch, use_dict: bool = True):
     stride = hrb + cap
 
     lane = torch.arange(n, dtype=i64, device=dev)
-    cfg = tb.cfg.to(i64)[lane // NSTREAM]
+    cfg = tb.cfg.to(i64)[lane // tb.width]
 
     def col(c):
         return cfg[:, c]
@@ -931,15 +934,24 @@ def decode3_ref(tb: V3TorchBatch, use_dict: bool = True):
 # drivers
 # ---------------------------------------------------------------------------
 
-def run_batch_v3(batch: V3Batch, device: torch.device | str,
-                 use_dict: bool = True, custom_dictionary=None,
-                 dict_dev=None):
-    """Stage `batch` on `device` and decode it (counterpart of the
-    reference's staged_v3 + run_batch_v3).
+def run_staged_v3(staged, use_dict: bool = True):
+    """Decode a batch that ops/stage3_native.py staged (a StagedV3), on its
+    device.
 
     Returns (out (n_lanes, out_cap) uint8, status (16, n_lanes) int32) as
     device tensors: lane l's metablock is out[l, :mlen], its status rows
     err, r_lane, phase, mbl, widx, avail, r0..r3, then zeros."""
+    tb = staged.tb
+    out, status = decode3(tb, use_dict)
+    return out[:, tb.hrb:], status
+
+
+def run_batch_v3(batch: V3Batch, device: torch.device | str,
+                 use_dict: bool = True, custom_dictionary=None,
+                 dict_dev=None):
+    """The yardstick's batch (counterpart of the reference's staged_v3 +
+    run_batch_v3): batch_to_torch_v3 stages the V3Batch on `device`, then
+    as run_staged_v3."""
     tb = batch_to_torch_v3(batch, device, custom_dictionary, dict_dev)
     out, status = decode3(tb, use_dict)
     return out[:, tb.hrb:], status
@@ -947,7 +959,8 @@ def run_batch_v3(batch: V3Batch, device: torch.device | str,
 
 def _lanes(batch: V3Batch, out: torch.Tensor, status: torch.Tensor):
     """Host copies of a run: (status (16, n) int64 with WIDX_GUARD or-ed
-    into the err row of lanes that read past their own words, bytes)."""
+    into the err row of lanes that read past their own words, bytes).
+    The yardstick of collect_lanes_v3_pinned."""
     st = status.cpu().numpy().astype(np.int64)
     # truncated-stream guard: the word table is zero-padded, so a lane cut
     # short can decode padding to DONE; one that consumed words past its
@@ -959,6 +972,54 @@ def _lanes(batch: V3Batch, out: torch.Tensor, status: torch.Tensor):
     return st, out.cpu().numpy()
 
 
+def _to_host(*tensors) -> list[np.ndarray]:
+    """Device tensors into pinned buffers on the current stream, with one
+    synchronise; CPU tensors as they lie."""
+    if tensors[0].device.type != "cuda":
+        return [t.numpy() for t in tensors]
+    host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            .copy_(t, non_blocking=True) for t in tensors]
+    torch.cuda.current_stream(tensors[0].device).synchronize()
+    return [t.numpy() for t in host]
+
+
+def lane_flags(staged, status: np.ndarray) -> np.ndarray:
+    """Each lane's err row with WIDX_GUARD or-ed in where it read past its
+    own words (_lanes' rule), 0 for a pad lane."""
+    err = status[0].astype(np.int64)
+    over = status[4].astype(np.int64) > staged.n_words.astype(np.int64) + 4
+    return np.where(staged.perm >= 0, np.where(over, err | WIDX_GUARD, err), 0)
+
+
+def collect_lanes_v3_pinned(staged, streams: list[bytes], out: torch.Tensor,
+                            status: torch.Tensor,
+                            custom_dictionary=None) -> list[bytes]:
+    """Each stream's bytes from a finished StagedV3, in stream order.
+
+    On the card the bytes and the status rows go into pinned buffers on the
+    current stream, with one synchronise; on the CPU they are read where
+    they lie.  A lane that ends flagged, or that read past its own words
+    (WIDX_GUARD), is re-decoded on the host, and counted in
+    fallback_stats()."""
+    raw, st = _to_host(out.contiguous(), status)
+    flags = lane_flags(staged, st)
+    perm = staged.perm
+    live = perm >= 0
+    results: list[bytes | None] = [None] * staged.n_streams
+    flat = memoryview(raw.reshape(-1))
+    stride = raw.shape[1]
+    good = np.flatnonzero(live & (flags == 0))
+    for slot, i, m in zip(good.tolist(), perm[good].tolist(),
+                          staged.mlens[good].tolist()):
+        results[i] = bytes(flat[slot * stride: slot * stride + m])
+    fell = np.flatnonzero(live & (flags != 0))
+    for i in perm[fell].tolist():
+        results[i] = host_decode(streams[i],
+                                 custom_dictionary=custom_dictionary)
+    _note_fallbacks(staged.n_streams, int(fell.size))
+    return results  # type: ignore[return-value]
+
+
 def decode_batch_v3(streams: list[bytes], *,
                     device: torch.device | str = "cuda",
                     use_dict: bool = True, max_groups: int = GROUP_CAP_V3,
@@ -967,36 +1028,26 @@ def decode_batch_v3(streams: list[bytes], *,
 
     Any stream of one compressed metablock is device-eligible whatever its
     entropy layout (context maps, block switching, tree groups, static and
-    compound dictionary).  Flagged lanes re-decode on the host; a batch the
-    preflight refuses (another stream shape, more than `max_groups` table
-    groups) is host-decoded whole.  Both count in fallback_stats().
-    `dict_dev`: the static dictionary already on `device`
-    (stage_dictionary), so that the call uploads none."""
-    dev = resolve_device(device)
-    if dict_dev is not None:
-        _check_dict_dev(dict_dev, dev)
-    batch = preflight_v3_native(streams, max_groups=max_groups)
-    if batch is None:
+    compound dictionary).  The batch is staged natively
+    (ops/stage3_native.stage_v3_native: groups of 128 lanes, one pinned
+    buffer, one copy) and unpacked through pinned buffers
+    (collect_lanes_v3_pinned).  Flagged lanes re-decode on the host; a batch
+    the staging refuses (another stream shape, more lanes than `max_groups`
+    groups of 1024 hold) is host-decoded whole.  Both count in
+    fallback_stats().  `dict_dev`: the static dictionary already on
+    `device` (stage_dictionary), so that the call uploads none."""
+    from . import stage3_native as S3
+
+    staged = S3.stage_v3_native(streams, device, max_groups=max_groups,
+                                custom_dictionary=custom_dictionary,
+                                dict_dev=dict_dev)
+    if staged is None:
         _note_fallbacks(len(streams), len(streams))
         return [host_decode(s, custom_dictionary=custom_dictionary)
                 for s in streams]
-    out, status = run_batch_v3(batch, dev, use_dict, custom_dictionary,
-                               dict_dev)
-    st, raw = _lanes(batch, out, status)
-    results: list[bytes | None] = [None] * batch.n_streams
-    n_fallback = 0
-    for slot in range(batch.groups * NSTREAM):
-        i = int(batch.perm[slot])
-        if i < 0 or i >= batch.n_streams:
-            continue
-        if st[0, slot] != 0:
-            n_fallback += 1
-            results[i] = host_decode(streams[i],
-                                     custom_dictionary=custom_dictionary)
-        else:
-            results[i] = raw[slot, : batch.mlens[slot]].tobytes()
-    _note_fallbacks(batch.n_streams, n_fallback)
-    return results  # type: ignore[return-value]
+    out, status = run_staged_v3(staged, use_dict)
+    return collect_lanes_v3_pinned(staged, streams, out, status,
+                                   custom_dictionary)
 
 
 def decode_batch_v3_full(streams: list[bytes], *,
@@ -1008,25 +1059,30 @@ def decode_batch_v3_full(streams: list[bytes], *,
     """Decode arbitrary (multi-metablock) Brotli streams on `device`.
 
     The host walks each stream's metablock headers: metadata blocks are
-    skipped and uncompressed blocks copied on the host, while each
-    compressed metablock becomes a unit of device work carrying its
-    continuation (all earlier output as the history prefix, the distance
-    ring, the last two bytes).  Units across streams are binned by their
-    tables and decoded in rounds, one kernel launch a round; the walk and
-    the parse of every unit's tables are one C++ call each a round
-    (ops/preflight3_native.py: walk_units, preflight_units_v3_native).  The status
-    rows give the exact end bit (32*widx - avail) from which the host reads
-    the next header.  Streams beyond the _FULL_* caps, or lanes that flag,
-    are decoded on the host and counted in fallback_stats().  `dict_dev`
-    as for decode_batch_v3: every round reads that one dictionary."""
+    skipped and uncompressed blocks copied, while each compressed metablock
+    becomes a unit of device work carrying its continuation (all earlier
+    output as the history prefix, the distance ring, the last two bytes).
+    Units across streams are binned by their tables and decoded in rounds,
+    one kernel launch a round; the walk and the staging are one C++ call
+    each a round (ops/stage3_native.py: walk_ptrs, stage_units_v3_native).
+    Each stream's output so far stays on the device (DeviceHistory): a
+    round uploads only the bytes the walk copied, appends its lanes'
+    bytes there, and gathers the next round's prefixes from it; the host
+    fetches each stream's output once, at the end.  The status rows give
+    the exact end bit (32*widx - avail) from which the host reads the next
+    header.  Streams beyond the _FULL_* caps, or lanes that flag, are
+    decoded on the host and counted in fallback_stats().  `dict_dev` as
+    for decode_batch_v3: every round reads that one dictionary."""
+    from . import stage3_native as S3
+
     dev = resolve_device(device)
     if dict_dev is not None:
         _check_dict_dev(dict_dev, dev)
     n = len(streams)
-    staged = stage_streams(streams)
-    outs: list[bytearray] = [bytearray() for _ in range(n)]
+    src = S3.StreamPtrs(streams)
+    history = S3.DeviceHistory(n, dev)
     bitpos = np.zeros(n, np.int64)   # 0: the stream's first bit
-    rings: list[tuple] = [(4, 11, 15, 16)] * n
+    rings = np.tile(np.array([[4], [11], [15], [16]], np.int64), (1, n))
     maxbw = np.zeros(n, np.int64)
     live = np.ones(n, bool)
     failed = np.zeros(n, bool)
@@ -1037,63 +1093,56 @@ def decode_batch_v3_full(streams: list[bytes], *,
         todo = np.flatnonzero(live)
         if not todo.size:
             break
-        walked = walk_units(staged, todo, bitpos[todo])
+        walked = S3.walk_ptrs(src, todo, bitpos[todo])
         wu = walked.units
         first = bitpos[todo] == 0
         maxbw[todo[first]] = wu[first, 3]
-        for k in np.flatnonzero(wu[:, 5]):
-            outs[todo[k]] += walked.copy_of(k)
+        copies = np.flatnonzero(wu[:, 5])
+        history.append_copies(todo[copies], walked, copies)
         failed[todo[wu[:, 0] < 0]] = True
         live[todo[wu[:, 0] != 1]] = False
         found = wu[:, 0] == 1
         if not found.any():
             break
-        unit_i = todo[found].tolist()
-        unit_bit, unit_mlen = wu[found, 2], wu[found, 1]
-        is_last = dict(zip(unit_i, wu[found, 4].astype(bool).tolist()))
-
-        idx = np.asarray(unit_i, np.int64)
-        hists = [bytes(outs[i]) for i in unit_i]
-        extras = np.array(
-            [(len(h), h[-1] if h else 0, h[-2] if len(h) >= 2 else 0,
-              *rings[i]) for i, h in zip(unit_i, hists)], np.int64).T
-        batch = preflight_units_v3_native(V3Units(
-            streams=staged, stream=idx, bit=unit_bit, mlen=unit_mlen,
-            maxbw=maxbw[idx], extras=extras, hist=hists),
-            max_groups=max_groups)
-        placed = set() if batch is None else set(
-            batch.perm[batch.perm >= 0].tolist())
+        idx = todo[found]
+        is_last = np.zeros(n, bool)
+        is_last[idx] = wu[found, 4] != 0
+        staged = S3.stage_units_v3_native(
+            src, idx, wu[found, 2], wu[found, 1], maxbw[idx], rings[:, idx],
+            history, dev, max_groups=max_groups,
+            custom_dictionary=custom_dictionary, dict_dev=dict_dev)
         # units the parse refused (a malformed table, beyond the _FULL_*
         # caps), or all of them when over the group budget
-        for i in unit_i:
-            if i not in placed:
-                failed[i] = True
-                live[i] = False
-        if batch is None:
+        placed = np.zeros(n, bool)
+        if staged is not None:
+            placed[staged.perm[staged.perm >= 0]] = True
+        refused = idx[~placed[idx]]
+        failed[refused] = True
+        live[refused] = False
+        if staged is None:
             break
-        out, status = run_batch_v3(batch, dev, use_dict, custom_dictionary,
-                                   dict_dev)
-        st, raw = _lanes(batch, out, status)
-        for slot in range(batch.groups * NSTREAM):
-            i = int(batch.perm[slot])
-            if i < 0:
-                continue
-            if st[0, slot] != 0:
-                failed[i] = True
-                live[i] = False
-                continue
-            outs[i] += raw[slot, : batch.mlens[slot]].tobytes()
-            rings[i] = tuple(int(st[6 + k, slot]) for k in range(4))
-            if is_last[i]:
-                live[i] = False
-            else:
-                # the slot's words start at the word of its first command
-                w0 = int(staged.n_words[i]) - int(batch.n_words[slot])
-                bitpos[i] = 32 * w0 + 32 * int(st[4, slot]) - int(st[5, slot])
+        out, status = run_staged_v3(staged, use_dict)
+        st = _to_host(status)[0]
+        flags = lane_flags(staged, st)
+        slots = np.flatnonzero(staged.perm >= 0)
+        bad, good = slots[flags[slots] != 0], slots[flags[slots] == 0]
+        failed[staged.perm[bad]] = True
+        live[staged.perm[bad]] = False
+        i = staged.perm[good]
+        history.append(i, out[torch.from_numpy(good).to(dev)],
+                       staged.mlens[good])
+        rings[:, i] = st[6:10, good]
+        done = is_last[i]
+        live[i[done]] = False
+        # each lane's words start at the word of its first command
+        go = good[~done]
+        bitpos[staged.perm[go]] = (32 * staged.w0[go] + 32 * st[4, go]
+                                   - st[5, go])
 
+    outs = history.fetch(np.flatnonzero(~failed))
     results = [
         host_decode(streams[i], custom_dictionary=custom_dictionary)
-        if failed[i] else bytes(outs[i])
+        if failed[i] else outs[i]
         for i in range(n)
     ]
     _note_fallbacks(n, int(failed.sum()))

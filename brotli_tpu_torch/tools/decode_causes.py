@@ -80,7 +80,8 @@ k3(const u32* wt, const i32* lit, const i32* cmd, const i32* dist,
    const i32* bsw, const i32* cmap, const i32* dx, const i32* consts,
    const i32* lut, const i32* tfm, const u8* dict, const u8* tfs,
    const u8* cdict, const i32* cfg, const i32* scal, u8* out, i32* status,
-   int n_lanes, int wpad, int out_cap, int hrb, Decode3Shared S) {
+   int n_lanes, int wpad, int out_cap, int hrb, int group_lanes,
+   Decode3Shared S) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int BLOCK = LPW * WPB;
   if ((int)threadIdx.x % 32 >= LPW) return;
@@ -97,8 +98,8 @@ k3(const u32* wt, const i32* lit, const i32* cmd, const i32* dist,
       *(u32*)(s_out + t * stride + i) = *(const u32*)(slot + i);
   S.consts = consts; S.lut = lut; S.tfm = tfm; S.dict = dict; S.tfs = tfs;
   S.cdict = cdict;
-  const Decode3Group G = make_group3(cfg + (lane / 1024) * NCFG3, lit, cmd,
-                                     dist, bsw, cmap, dx);
+  const Decode3Group G = make_group3(cfg + (lane / group_lanes) * NCFG3, lit,
+                                     cmd, dist, bsw, cmap, dx);
   const Decode3Lane L{WORDS ? s_w + t : wt + lane, WORDS ? BLOCK : n_lanes,
                       wpad, scal + lane, n_lanes,
                       OUTS ? s_out + t * stride : slot, hrb, out_cap,
@@ -160,7 +161,8 @@ static int allow(K kern, size_t smem) {
         (const i32*)cmd, (const i32*)dist, (const i32*)bsw, (const i32*)cmap, \
         (const i32*)dx, (const i32*)consts, (const i32*)lut, (const i32*)tfm, \
         (const u8*)dict, (const u8*)tfs, (const u8*)cdict, (const i32*)cfg, \
-        (const i32*)scal, (u8*)out, (i32*)status, n_lanes, wpad, out_cap, hrb, S); \
+        (const i32*)scal, (u8*)out, (i32*)status, n_lanes, wpad, out_cap, hrb, \
+        group_lanes, S); \
     return (int)cudaGetLastError(); }
 
 #define V2(LP, WP, O, W) \
@@ -179,8 +181,10 @@ extern "C" int causes_decode3(
     const void* lut, const void* tfm, const void* dict, const void* tfs,
     const void* cdict, const void* cfg, const void* scal, void* out,
     void* status, int n_lanes, int wpad, int out_cap, int hrb, int dict_n,
-    int tfs_n, int cd_n, int cd_t, int use_dict, int lpw, int wpb,
-    int outs, int words, void* stream) {
+    int tfs_n, int cd_n, int cd_t, int use_dict, int group_lanes, int lpw,
+    int wpb, int outs, int words, void* stream) {
+  if (group_lanes < 1 || group_lanes % (lpw * wpb) != 0)
+    return (int)cudaErrorInvalidValue;
   Decode3Shared S{};
   S.dict_n = dict_n; S.tfs_n = tfs_n; S.cd_n = cd_n; S.cd_t = cd_t;
   S.use_dict = use_dict != 0;
@@ -235,7 +239,7 @@ def _build(tmp: Path) -> ctypes.CDLL:
             print(f"[causes] {line.strip()}")
     so = ctypes.CDLL(str(lib))
     P, I = ctypes.c_void_p, ctypes.c_int
-    so.causes_decode3.argtypes = [P] * 17 + [I] * 13 + [P]
+    so.causes_decode3.argtypes = [P] * 17 + [I] * 14 + [P]
     so.causes_decode2.argtypes = [P] * 12 + [I] * 13 + [P]
     so.causes_decode3.restype = so.causes_decode2.restype = I
     return so

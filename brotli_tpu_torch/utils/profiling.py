@@ -21,6 +21,7 @@ import time
 from pathlib import Path
 from typing import Any
 
+import numpy as np
 import torch
 
 DEFAULT_TRACE_DIR = Path(__file__).resolve().parent.parent / "build" / "trace"
@@ -252,6 +253,256 @@ def profile_e2e_decode(streams: list[bytes],
         rr["device_s_by_name"] = device_times(prof)
     return {"bytes": sum(map(len, outs["new"])),
             "fallback_lanes": D.fallback_stats()["lanes_fallback"] - fb0,
+            "out": outs["new"], "same": outs["old"] == outs["new"], **res}
+
+
+class _Parts:
+    """Host-clock parts of one call, each through a synchronise of
+    `device` (none on the CPU): timed blocks, and wrapped functions (their
+    outermost calls only, so a wrapped function that another one calls
+    counts in its caller's)."""
+
+    def __init__(self, device: torch.device | str = "cuda"):
+        self.s: dict[str, float] = {}
+        self.depth = 0
+        self.cuda = torch.device(device).type == "cuda"
+
+    def add(self, name: str, seconds: float) -> None:
+        self.s[name] = self.s.get(name, 0.0) + seconds
+
+    def _sync(self) -> None:
+        if self.cuda:
+            torch.cuda.synchronize()
+
+    @contextlib.contextmanager
+    def part(self, name: str):
+        self._sync()
+        t = time.perf_counter()
+        yield
+        self._sync()
+        self.add(name, time.perf_counter() - t)
+
+    @contextlib.contextmanager
+    def wrapping(self, targets):
+        """targets: (owner, attribute, part name); each owner.attribute
+        timed under its part name while the block runs."""
+        saved = [(o, a, getattr(o, a)) for o, a, _ in targets]
+
+        def wrap(fn, name):
+            def run(*args, **kw):
+                if self.depth:
+                    return fn(*args, **kw)
+                self.depth += 1
+                try:
+                    with self.part(name):
+                        return fn(*args, **kw)
+                finally:
+                    self.depth -= 1
+            return run
+
+        for (o, a, fn), (_, _, name) in zip(saved, targets):
+            setattr(o, a, wrap(fn, name))
+        try:
+            yield self
+        finally:
+            for o, a, fn in saved:
+                setattr(o, a, fn)
+
+
+def _old_decode_v3(streams, dev, max_groups, dict_dev, parts: _Parts):
+    """decode_batch_v3 through the yardstick's host half: the joined
+    streams, the native parse and binning, the numpy staging
+    (preflight3_native._assemble), batch_to_torch_v3's pageable copies,
+    _lanes and a bytes a lane."""
+    from ..decode import decode as host_decode
+    from ..ops import decode3 as D3
+    from ..ops import preflight3_native as N3
+
+    with parts.part("stage_streams"):
+        st = N3.stage_streams(streams)
+    ids = np.arange(len(streams), dtype=np.int64)
+    with parts.part("parse_units"):
+        parsed = N3.parse_units(st, ids, max_bins=max_groups)
+    if (parsed.units[:, 0] != 1).any():
+        raise ValueError("the yardstick's preflight refused the streams")
+    with parts.part("_assemble"):
+        batch = N3._assemble(st, parsed, ids, ids, parsed.units[:, 1],
+                             max_groups, 64)
+    if batch is None:
+        raise ValueError("the yardstick's preflight refused the batch")
+    with parts.part("batch_to_torch_v3"):
+        tb = D3.batch_to_torch_v3(batch, dev, dict_dev=dict_dev)
+    with parts.part("kernel"):
+        out, status = D3.decode3(tb)
+    with parts.part("_lanes"):
+        stn, raw = D3._lanes(batch, out[:, tb.hrb:], status)
+    with parts.part("per-lane bytes"):
+        results: list = [None] * batch.n_streams
+        fell = 0
+        for slot in range(batch.groups * D3.NSTREAM):
+            i = int(batch.perm[slot])
+            if i < 0:
+                continue
+            if stn[0, slot] != 0:
+                fell += 1
+                results[i] = host_decode(streams[i])
+            else:
+                results[i] = raw[slot, : batch.mlens[slot]].tobytes()
+    D3._note_fallbacks(batch.n_streams, fell)
+    return results
+
+
+def _old_decode_v3_full(streams, dev, max_groups, dict_dev, parts: _Parts):
+    """decode_batch_v3_full through the yardstick's host half: the joined
+    streams' native walk, each unit's earlier output as bytes on the host,
+    preflight_units_v3_native (native parse, numpy staging), batch_to_torch_v3
+    (the prefixes uploaded pageable), _lanes and the outputs grown on the
+    host."""
+    from ..decode import decode as host_decode
+    from ..ops import decode3 as D3
+    from ..ops import preflight3_native as N3
+
+    n = len(streams)
+    with parts.part("stage_streams"):
+        staged = N3.stage_streams(streams)
+    outs = [bytearray() for _ in range(n)]
+    bitpos = np.zeros(n, np.int64)
+    rings = [(4, 11, 15, 16)] * n
+    maxbw = np.zeros(n, np.int64)
+    live = np.ones(n, bool)
+    failed = np.zeros(n, bool)
+    while True:
+        todo = np.flatnonzero(live)
+        if not todo.size:
+            break
+        with parts.part("walk"):
+            walked = N3.walk_units(staged, todo, bitpos[todo])
+            wu = walked.units
+            first = bitpos[todo] == 0
+            maxbw[todo[first]] = wu[first, 3]
+            for k in np.flatnonzero(wu[:, 5]):
+                outs[todo[k]] += walked.copy_of(k)
+        failed[todo[wu[:, 0] < 0]] = True
+        live[todo[wu[:, 0] != 1]] = False
+        found = wu[:, 0] == 1
+        if not found.any():
+            break
+        unit_i = todo[found].tolist()
+        is_last = dict(zip(unit_i, wu[found, 4].astype(bool).tolist()))
+        idx = np.asarray(unit_i, np.int64)
+        with parts.part("history copies"):
+            hists = [bytes(outs[i]) for i in unit_i]
+            extras = np.array(
+                [(len(h), h[-1] if h else 0, h[-2] if len(h) >= 2 else 0,
+                  *rings[i]) for i, h in zip(unit_i, hists)], np.int64).T
+        with parts.part("preflight_units_v3_native"):
+            batch = N3.preflight_units_v3_native(N3.V3Units(
+                streams=staged, stream=idx, bit=wu[found, 2],
+                mlen=wu[found, 1], maxbw=maxbw[idx], extras=extras,
+                hist=hists), max_groups=max_groups)
+        placed = set() if batch is None else set(
+            batch.perm[batch.perm >= 0].tolist())
+        for i in unit_i:
+            if i not in placed:
+                failed[i] = True
+                live[i] = False
+        if batch is None:
+            break
+        with parts.part("batch_to_torch_v3"):
+            tb = D3.batch_to_torch_v3(batch, dev, dict_dev=dict_dev)
+        with parts.part("kernel"):
+            out, status = D3.decode3(tb)
+        with parts.part("_lanes and appends"):
+            st, raw = D3._lanes(batch, out[:, tb.hrb:], status)
+            for slot in range(batch.groups * D3.NSTREAM):
+                i = int(batch.perm[slot])
+                if i < 0:
+                    continue
+                if st[0, slot] != 0:
+                    failed[i] = True
+                    live[i] = False
+                    continue
+                outs[i] += raw[slot, : batch.mlens[slot]].tobytes()
+                rings[i] = tuple(int(st[6 + k, slot]) for k in range(4))
+                if is_last[i]:
+                    live[i] = False
+                else:
+                    w0 = int(staged.n_words[i]) - int(batch.n_words[slot])
+                    bitpos[i] = (32 * w0 + 32 * int(st[4, slot])
+                                 - int(st[5, slot]))
+    D3._note_fallbacks(n, int(failed.sum()))
+    return [host_decode(streams[i]) if failed[i] else bytes(outs[i])
+            for i in range(n)]
+
+
+def profile_v3_decode(streams: list[bytes], device: torch.device | str = "cuda",
+                      *, full: bool = False, max_groups: int | None = None,
+                      dict_dev=None, rounds: int = 5) -> dict:
+    """The v3 round trip's two host halves on `streams`, in turns: "old",
+    the yardstick's (the joined streams, the native parse with numpy
+    staging in the TPU's layout, pageable copies, a Python loop over the
+    lanes; on the full path each unit's earlier output rebuilt as bytes on
+    the host every round), and "new", the drivers themselves
+    (decode_batch_v3, or decode_batch_v3_full with `full`: the native
+    staging into one pinned buffer, the pinned unpack, the history kept on
+    the card).  Each half runs once first (reported apart), then `rounds`
+    times, the two in turns; "best" is each part's best of those, host
+    clock through a synchronise.  Returns {"bytes", "fallback_lanes",
+    "out" (the new half's first output), "same" (the halves' first
+    outputs equal), "old": {"first", "best"}, "new": {...}}: part name ->
+    seconds, "call" the whole call."""
+    from ..ops import decode3 as D3
+    from ..ops import stage3_native as S3
+    from ..ops.decode2 import fallback_stats
+
+    dev = _require_card(device)
+    if max_groups is None:
+        max_groups = D3.GROUP_CAP_V3
+
+    def new_parts(parts: _Parts):
+        H = S3.DeviceHistory
+        return parts.wrapping([
+            (S3, "walk_ptrs", "walk"),
+            (H, "append_copies", "history (device)"),
+            (H, "append", "history (device)"),
+            (H, "prefix", "history (device)"),
+            (S3, "plan_and_fill", "plan_and_fill"),
+            (S3, "to_device", "to_device"),
+            (D3, "decode3", "kernel"),
+            (D3, "_to_host", "status copy"),
+            (D3, "collect_lanes_v3_pinned", "collect_lanes_v3_pinned"),
+            (H, "fetch", "fetch")])
+
+    def call(name):
+        parts = _Parts(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if name == "old":
+            old = _old_decode_v3_full if full else _old_decode_v3
+            out = old(streams, dev, max_groups, dict_dev, parts)
+        else:
+            fn = D3.decode_batch_v3_full if full else D3.decode_batch_v3
+            with new_parts(parts):
+                out = fn(streams, device=dev, max_groups=max_groups,
+                         dict_dev=dict_dev)
+        torch.cuda.synchronize()
+        parts.add("call", time.perf_counter() - t0)
+        return parts.s, out
+
+    fb0 = fallback_stats()["lanes_fallback"]
+    res: dict[str, dict] = {}
+    outs = {}
+    for name in ("old", "new"):
+        first, outs[name] = call(name)
+        res[name] = {"first": first, "runs": []}
+    for r in range(rounds):
+        for name in (("old", "new") if r % 2 == 0 else ("new", "old")):
+            res[name]["runs"].append(call(name)[0])
+    for rr in res.values():
+        runs = rr.pop("runs")
+        rr["best"] = {k: min(run[k] for run in runs) for k in runs[0]}
+    return {"bytes": sum(map(len, outs["new"])),
+            "fallback_lanes": fallback_stats()["lanes_fallback"] - fb0,
             "out": outs["new"], "same": outs["old"] == outs["new"], **res}
 
 

@@ -83,7 +83,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
    switching in all three categories, one static-dictionary word per
    transform (121) over a group, the compound-dictionary streams, and a
    batch with one poisoned and one truncated lane (both must flag); the
-   direct v3 kernel on each too; then the host q9/q11 encodes 256 times
+   direct v3 kernel on each too; each batch also staged natively in groups
+   of 128 lanes (stage_v3_native), each stream's bytes and status rows
+   there equal to the groups of 1024 (the poisoned batch's narrow run held
+   to the plain version too); then the host q9/q11 encodes 256 times
    each (1024 lanes, copies from further back than the v3 cell's), the
    windowed kernel equal to the direct one and timed in turns with it;
 13. v3 main path -- the reference bench's full-format shape: 6 groups x
@@ -91,32 +94,41 @@ Phases, in order; any failure raises and the exit code is non-zero:
    (lit_ctx_trees=8; one launch each of matches and records a call,
    counted from 0), decoded by decode_batch_v3(device="cuda",
    max_groups=6, dict_dev=stage_dictionary("cuda")): equal to the input,
-   no fallback, the decode3 kernel launched on the staged dictionary;
-   host clock of the call split into the native preflight, the staging,
-   the kernel, the copies back and the per-lane copies; then the native
-   preflight (best of 3) and the Python one (once) on the same streams,
-   their V3Batches equal field for field;
+   no fallback, the decode3 kernel launched on the staged dictionary,
+   staged once by the native staging (stage3_native: plan and fill into
+   one pinned buffer, one copy) and never by the yardstick's preflight,
+   unpacked by collect_lanes_v3_pinned; host clock of the call's parts;
+   then the old host half (the yardstick: the joined streams, the native
+   parse, numpy staging, pageable copies, the lane loop) against the new
+   one in turns (utils.profiling.profile_v3_decode: first calls apart,
+   best of 5, each part's host clock), outputs equal; the native staging
+   at width 1024 equal field for field to batch_to_torch_v3 of the
+   yardstick's preflight; 100 of the streams (one table set: one group of
+   128 lanes) bit-exact; the yardstick's preflight (best of 3) and the
+   Python one (once), their V3Batches equal field for field;
 14. v3 times with CUDA events on the staged main batch: the kernel at
-   use_dict=False (the bench's timed setting; in turns with the direct
-   kernel) and True, the output allocation and fill alone, and the plain
-   version once, equal to both kernels;
+   use_dict=False (the bench's timed setting) at the main path's groups
+   of 128 lanes in turns with the yardstick's groups of 1024 and with the
+   direct kernel, and at use_dict=True; the output allocation and fill
+   alone; the plain version once, equal to every run lane for lane;
 15. v3 block types -- 1024 x 4 KB encoded on the card with block
    switching (lit_ctx_trees=4, block_types=3, block_seg=512), each stream
    with initial block lengths of its own, through decode_batch_v3(device=
    "cuda") at the port's cap: the groups of the Python preflight's binning
    (over the cap) and of the native one, bit-exact output, 0 fallback
    lanes, one decode3 launch counted from 0, the call's host clock (the
-   native preflight apart) against the host decoder's;
+   native staging apart) against the host decoder's;
 16. v3 full -- decode_batch_v3_full(device="cuda") on 1024 lanes of three
    64 KB streams (a streaming Encoder(quality=5, lgwin=18) fed 1 KB updates
    in 16 KB metablocks, a spliced parallel_encode stream, an uncompressed
    one):
    equal to the input, no fallback, one kernel launch per round, the
    direct kernel never; the call's host clock with the native header
-   walk's and preflight's shares, against the host decoder's; each
-   round's groups beside the
-   Python preflight's binning of the same units; then each round's batch
-   through both kernels, equal, timed in turns;
+   walk's, staging's and kernel's shares, against the host decoder's;
+   each round's groups of 128 beside the Python preflight's binning of
+   the same units; the old host half against the new one (each stream's
+   output kept on the card between rounds) in turns, outputs equal; then
+   each round's batch through both kernels, equal, timed in turns;
 17. caps -- the group-cap sweep at 12, 16, 24 and 32 groups: v2, the
    main-path streams G times, both v2 kernels (resolve in turns with its
    direct form); v3, the staged v3 cell
@@ -124,12 +136,13 @@ Phases, in order; any failure raises and the exit code is non-zero:
    bytes equal to the input on the card and no flagged lane;
    then sparse batches the caps put on the card, 32 streams whose tables
    all differ (32 groups of one live lane each, under the native binning
-   and the Python preflight's: v2 8 KB, v3 32 KB with block switching and
-   a table group a stream, v3 full 64 KB in four metablocks), through the
-   drivers at the port's caps: equal to the input, no fallback, the
-   groups, the call's host clock (with the native preflight's share),
-   peak device memory and kernel times (the v2 resolve in turns with its
-   direct form), against the host decoder on the same streams;
+   and the Python preflight's; v3 groups of 128 lanes: v2 8 KB, v3 32 KB
+   with block switching and a table group a stream, v3 full 64 KB in four
+   metablocks), through the drivers at the port's caps: equal to the
+   input, no fallback, the groups, the call's host clock, peak device
+   memory and kernel times (the v2 resolve in turns with its direct
+   form), against the host decoder on the same streams; on the v3 paths
+   then the old host half against the new one in turns, outputs equal;
 18. probes -- run_probe_v2 at every level and run_probe_v2b at every
    variant of the TPU scripts, launches counted from 0; each kernel's
    outputs held against its plain version bit for bit; ns per row;
@@ -397,24 +410,46 @@ def python_groups(streams: list[bytes]) -> int:
     return sum(-(-c // NSTREAM) for c in keys.values())
 
 
-def python_groups_units(units) -> int:
-    """The same for one round of decode_batch_v3_full (a V3Units): each
-    unit's _MetablockState read at its bit, binned by _sig_of and maxbw
-    (each distinct stream and bit read once)."""
+def python_groups_at(streams: list[bytes], stream, bit, maxbw) -> int:
+    """The same for one round of decode_batch_v3_full: unit u's
+    _MetablockState read at bit bit[u] of streams[stream[u]], binned by
+    _sig_of and maxbw (each distinct stream and bit read once)."""
     from brotli_tpu_torch.decode.bitreader import BitReader
     from brotli_tpu_torch.decode.engine import _MetablockState
     from brotli_tpu_torch.ops.preflight3 import NSTREAM, _sig_of
 
-    st, sigs, keys = units.streams, {}, Counter()
-    for s_i, bit, maxbw in zip(units.stream, units.bit, units.maxbw):
-        off, n = int(st.offsets[s_i]), int(st.lens[s_i])
-        at = (st.buf[off: off + n].tobytes(), int(bit))
+    sigs, keys = {}, Counter()
+    for s_i, b, mb in zip(stream, bit, maxbw):
+        at = (int(s_i), int(b))
         if at not in sigs:
-            br = BitReader(at[0])
+            br = BitReader(streams[at[0]])
             br.bitpos = at[1]
             sigs[at] = _sig_of(_MetablockState(br, large_window=False))
-        keys[sigs[at] + int(maxbw).to_bytes(4, "little")] += 1
+        keys[sigs[at] + int(mb).to_bytes(4, "little")] += 1
     return sum(-(-c // NSTREAM) for c in keys.values())
+
+
+@contextlib.contextmanager
+def round_units(streams: list[bytes]):
+    """decode_batch_v3_full's rounds: yields a list that gains, for each
+    call of stage_units_v3_native, the Python preflight's groups for the
+    round's units (python_groups_at) after the call."""
+    from brotli_tpu_torch.ops import stage3_native as S3
+
+    orig, groups = S3.stage_units_v3_native, []
+
+    def run(src, stream, bit, mlen, maxbw, *a, **k):
+        out = orig(src, stream, bit, mlen, maxbw, *a, **k)
+        groups.append((stream.copy(), np.asarray(bit).copy(),
+                       np.asarray(maxbw).copy()))
+        return out
+
+    S3.stage_units_v3_native = run
+    try:
+        yield groups
+    finally:
+        S3.stage_units_v3_native = orig
+    groups[:] = [python_groups_at(streams, *g) for g in groups]
 
 
 def ptxas_report(log: str) -> dict:
@@ -1425,44 +1460,70 @@ def dictmix(n: int) -> bytes:
 
 
 def v3_kernel_vs_plain(tag: str, streams: list[bytes], expect: list,
-                       flag: set = frozenset(), custom_dictionary=None) -> int:
+                       flag: set = frozenset(), custom_dictionary=None,
+                       plain_128: bool = False) -> int:
     """decode3 and decode3_direct against decode3_ref on one staged batch,
     bit for bit over the bytes and the 16 status rows; lanes in `flag`
-    must flag and the others decode to `expect`."""
+    must flag and the others decode to `expect`.  The batch staged by the
+    yardstick (preflight_v3_native, batch_to_torch_v3: groups of 1024) and
+    by the native staging (stage_v3_native: groups of 128) gives each
+    stream the same bytes and status rows through decode3 (with
+    `plain_128`, the narrow batch through decode3_ref too)."""
     from brotli_tpu_torch.ops import decode3 as D3
+    from brotli_tpu_torch.ops import stage3_native as S3
+    from brotli_tpu_torch.ops.preflight3_native import preflight_v3_native
 
-    batch = D3.preflight_v3_native(streams, max_groups=8)
+    batch = preflight_v3_native(streams, max_groups=8)
     check(batch is not None, f"{tag}: preflight_v3_native refused the batch")
     tb = D3.batch_to_torch_v3(batch, "cuda", custom_dictionary)
+    narrow = S3.stage_v3_native(streams, "cuda", max_groups=8,
+                                custom_dictionary=custom_dictionary)
+    check(narrow is not None, f"{tag}: stage_v3_native refused the batch")
     n0 = D3.KERNEL_LAUNCHES
     ker = D3.decode3(tb)
+    ker128 = D3.decode3(narrow.tb)
     direct = D3.decode3_direct(tb)
     ref = D3.decode3_ref(tb)
     torch.cuda.synchronize()
-    check(D3.KERNEL_LAUNCHES == n0 + 1, "decode3 did not count its launch")
+    check(D3.KERNEL_LAUNCHES == n0 + 2, "decode3 did not count its launches")
     err = max_abs_err(ker, ref)
     check(err == 0, f"{tag}: decode3 kernel != plain version ({err})")
     d_err = max_abs_err(direct, ref)
     check(d_err == 0, f"{tag}: direct decode3 kernel != plain version "
           f"({d_err})")
+    if plain_128:
+        n_err = max_abs_err(ker128, D3.decode3_ref(narrow.tb))
+        check(n_err == 0, f"{tag}: decode3 kernel != plain version at width "
+              f"128 ({n_err})")
+        err = max(err, n_err)
     out = ker[0][:, tb.hrb:].cpu().numpy()
     status = ker[1].cpu().numpy()
+    out128 = ker128[0].cpu().numpy()
+    status128 = ker128[1].cpu().numpy()
+    at128 = {int(i): slot for slot, i in enumerate(narrow.perm) if i >= 0}
     flagged = set()
     for slot in range(tb.n_lanes):
         i = int(batch.perm[slot])
         if i < 0:
             continue
+        m, s128 = int(batch.mlens[slot]), at128[i]
+        check((status[:, slot] == status128[:, s128]).all()
+              and (out[slot, :m] == out128[s128, :m]).all(),
+              f"{tag}: stream {i} decodes otherwise at width 128")
         if status[0, slot] != 0 or status[4, slot] > batch.n_words[slot] + 4:
             flagged.add(i)
         else:
-            check(out[slot, : batch.mlens[slot]].tobytes() == expect[i],
+            check(out[slot, :m].tobytes() == expect[i],
                   f"{tag}: stream {i} decodes wrong")
     check(flagged == set(flag), f"{tag}: lanes {sorted(flagged)} flagged, "
           f"want {sorted(flag)}")
     print(f"[v3 kernel==plain] {tag}: {len(streams)} streams in "
-          f"{batch.groups} groups, max_abs_err {err} over bytes and 16 status "
-          f"rows (direct kernel {d_err}; exact equality required), flagged "
-          f"lanes {sorted(flagged)}")
+          f"{batch.groups} groups of 1024 ({narrow.groups} of 128), "
+          f"max_abs_err {err} over bytes and 16 status rows (direct kernel "
+          f"{d_err}; exact equality required), each stream's bytes and "
+          f"status rows equal at both widths"
+          f"{' (width 128 held to the plain version too)' if plain_128 else ''}"
+          f", flagged lanes {sorted(flagged)}")
     return max(err, d_err)
 
 
@@ -1499,6 +1560,7 @@ def phase_v3_kernel_vs_plain(card_str: str) -> int:
     encodes, each 256 times, timed against the direct kernel."""
     import brotli_tpu_torch
     from brotli_tpu_torch.ops import decode3 as D3
+    from brotli_tpu_torch.ops.preflight3_native import preflight_v3_native
 
     enc, dec = brotli_tpu_torch.host_encode, brotli_tpu_torch.host_decode
     data = corpus(1024 * 1024)
@@ -1514,7 +1576,7 @@ def phase_v3_kernel_vs_plain(card_str: str) -> int:
             enc(texts[2], quality=9), enc(texts[3], quality=11)]
     worst = max(worst, v3_kernel_vs_plain(
         "host q9/q11 encodes (tree groups, block switching)", host, texts))
-    batch = D3.preflight_v3_native(host * 256, max_groups=8)
+    batch = preflight_v3_native(host * 256, max_groups=8)
     check(batch is not None, "preflight_v3_native refused the host q9/q11 "
           "lanes")
     tb = D3.batch_to_torch_v3(batch, "cuda")
@@ -1543,7 +1605,7 @@ def phase_v3_kernel_vs_plain(card_str: str) -> int:
     cut = bad[5][: len(bad[5]) * 3 // 4]   # the body's end is missing
     worst = max(worst, v3_kernel_vs_plain(
         "poisoned + truncated lanes", bad[:5] + [cut] + bad[6:] + [POISONED],
-        chunks[:64] + [None], {5, 64}))
+        chunks[:64] + [None], {5, 64}, plain_128=True))
     return worst
 
 
@@ -1583,24 +1645,69 @@ def v3_main_streams(card_str: str) -> tuple[bytes, list[bytes], dict]:
     return data, streams, launches
 
 
+def tb_diff(a, b) -> list[str]:
+    """The fields in which two V3TorchBatches differ (tensors: dtype,
+    shape and every value)."""
+    diff = []
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if isinstance(x, torch.Tensor):
+            same = (isinstance(y, torch.Tensor) and x.dtype == y.dtype
+                    and x.shape == y.shape and bool(torch.equal(x, y)))
+        elif isinstance(x, np.ndarray):
+            same = (x.dtype == y.dtype and x.shape == y.shape
+                    and bool((x == y).all()))
+        else:
+            same = x == y
+        if not same:
+            diff.append(f.name)
+    return diff
+
+
+def print_halves(tag: str, rep: dict, card_str: str, what: str = "") -> None:
+    """profile_v3_decode's report: each half's parts, first call and best
+    of the runs in turns."""
+    total = rep["bytes"]
+    for name, half in (("old", "the yardstick's host half"),
+                       ("new", "the native staging, pinned unpack")):
+        for when, label in (("first", "first call"),
+                            ("best", "best of 5, in turns with the other")):
+            parts = rep[name][when]
+            print(f"[{tag}] {card_str}: {what}{name} ({half}), {label}: call "
+                  f"{parts['call'] * 1e3:.3f} ms ({total / parts['call'] / 1e6:.1f} "
+                  "MB/s); " + ", ".join(f"{k} {v * 1e3:.3f} ms"
+                                        for k, v in parts.items()
+                                        if k != "call"))
+    print(f"[{tag}] {card_str}: {what}old and new outputs equal and equal "
+          f"to the input, {total} B, 0 fallback lanes (host clock, each part "
+          "through a synchronise)")
+
+
 def phase_v3_main(data: bytes, streams: list[bytes], card_str: str):
     """decode_batch_v3 on the main shape with the static dictionary staged
     once beforehand (dict_dev), the decode3 launches counted from 0, the
     kernel seen to read the staged dictionary tensor itself (no upload in
-    the call), and the call's host clock split: the native preflight, the
-    staging (batch_to_torch_v3), the kernel, the copies back (_lanes) and
-    the rest (the per-lane copies of the bytes).  Then the native preflight
-    (best of 3) and the Python one (once) on the same streams: the two
-    V3Batches must be equal field for field."""
+    the call), staged once by the native staging (stage3_native: one plan
+    and fill, one copy) and never by the yardstick's preflight, unpacked by
+    collect_lanes_v3_pinned.  Then the old host half against the new one
+    in turns (utils.profiling.profile_v3_decode); the native staging at
+    width 1024 equal field for field to batch_to_torch_v3 of the
+    yardstick's preflight; 100 of the streams (one table set, one group
+    of 128 lanes) bit-exact; the yardstick's native preflight (best of 3)
+    and the Python one (once) on the same streams, their V3Batches equal
+    field for field."""
     import brotli_tpu_torch
     from brotli_tpu_torch.ops import decode3 as D3
+    from brotli_tpu_torch.ops import preflight3_native as N3
+    from brotli_tpu_torch.ops import stage3_native as S3
     from brotli_tpu_torch.ops.preflight3 import preflight_v3
-    from brotli_tpu_torch.ops.preflight3_native import N_THREADS
+    from brotli_tpu_torch.utils.profiling import profile_v3_decode
 
-    parts = ("preflight_v3_native", "batch_to_torch_v3", "decode3", "_lanes")
     dict_dev = brotli_tpu_torch.stage_dictionary("cuda")
     fb0 = brotli_tpu_torch.fallback_stats()["lanes_fallback"]
-    with spied(D3, *parts) as (split, calls):
+    with (spied(S3, "plan_and_fill", "to_device") as (split, calls),
+          spied(D3, "decode3", "collect_lanes_v3_pinned") as (split3, calls3),
+          spied(N3, "parse_units", "_assemble") as (_, old_calls)):
         D3.KERNEL_LAUNCHES = 0
         D3.DIRECT_LAUNCHES = 0
         t0 = time.perf_counter()
@@ -1610,46 +1717,81 @@ def phase_v3_main(data: bytes, streams: list[bytes], card_str: str):
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         launches = D3.KERNEL_LAUNCHES
-    batch = calls["preflight_v3_native"][0][1]
-    dicts = [tb.dict for tb, _ in calls["decode3"]]
-    del calls
+    staged = calls["to_device"][0][1]
+    dicts = [tb.dict for tb, _ in calls3["decode3"]]
+    n_fill = len(calls["plan_and_fill"])
+    n_old = sum(map(len, old_calls.values()))
+    del calls, calls3, old_calls
     fell = brotli_tpu_torch.fallback_stats()["lanes_fallback"] - fb0
     check(b"".join(got) == data, "v3 main output differs from the input")
     check(fell == 0, f"{fell} v3 main lanes fell back to the host decoder")
     check(launches >= 1, "decode3 never launched on the v3 main path")
     check(D3.DIRECT_LAUNCHES == 0, "the v3 main path launched the direct "
           "kernel")
-    check(batch.groups == V3_GROUPS, "v3 main batch is not 6 groups")
+    check(n_fill == 1 and n_old == 0, f"[v3 main] {n_fill} native stagings, "
+          f"{n_old} calls of the yardstick's preflight")
+    check(staged.tb.n_lanes == V3_GROUPS * 1024 and staged.tb.width == 128,
+          "v3 main batch is not 6 x 1024 lanes in groups of 128")
     check(len(dicts) == launches and all(d is dict_dev for d in dicts),
           "decode_batch_v3 did not decode from the staged dictionary")
-    rest = dt - sum(split.values())
+    parts = {**split, **split3}
+    rest = dt - sum(parts.values())
     print(f"[v3 main] {card_str}: {len(data)} B decoded bit-exact through "
           f"decode_batch_v3(device='cuda', dict_dev=stage_dictionary('cuda')), "
           f"0 fallback lanes, decode3 launches {launches}, each on the "
-          f"staged dictionary tensor; whole call {dt:.3f} s (host clock), of "
-          f"which native preflight {split['preflight_v3_native']:.3f} s, "
-          f"staging (batch_to_torch_v3) {split['batch_to_torch_v3']:.3f} s, "
-          f"kernel {split['decode3']:.3f} s, copies back (_lanes) "
-          f"{split['_lanes']:.3f} s, the rest (per-lane copies) {rest:.3f} s "
-          "(each through a synchronise)")
+          f"staged dictionary tensor, {staged.groups} groups of 128 lanes, "
+          f"{staged.parses} table sections parsed for {len(streams)} "
+          f"streams; whole call {dt:.3f} s (host clock, a first call), of "
+          f"which plan and fill {parts['plan_and_fill']:.4f} s, to_device "
+          f"{parts['to_device']:.4f} s, kernel {parts['decode3']:.4f} s, "
+          f"collect_lanes_v3_pinned {parts['collect_lanes_v3_pinned']:.4f} "
+          f"s, the rest {rest:.4f} s (each through a synchronise)")
+    rep = profile_v3_decode(streams, max_groups=V3_GROUPS, dict_dev=dict_dev)
+    check(rep["same"] and rep["fallback_lanes"] == 0
+          and b"".join(rep["out"]) == data,
+          "[v3 main] the old and the new host halves' outputs differ")
+    print_halves("v3 main", rep, card_str)
+    wide = S3.stage_v3_native(streams, "cuda", max_groups=V3_GROUPS,
+                              width=1024)
     nat = []
     for _ in range(3):
         t0 = time.perf_counter()
-        again = D3.preflight_v3_native(streams, max_groups=V3_GROUPS)
+        batch = N3.preflight_v3_native(streams, max_groups=V3_GROUPS)
         nat.append(time.perf_counter() - t0)
+    diff = tb_diff(D3.batch_to_torch_v3(batch, "cuda"), wide.tb)
+    check(not diff, f"[v3 main] the native staging at width 1024 and the "
+          f"yardstick's differ in {diff}")
+    # one table set in one group of 128 lanes, fewer slots than the fill
+    # spreads over its threads: every lane's words must be written
+    few = 100
+    fb0 = brotli_tpu_torch.fallback_stats()["lanes_fallback"]
+    with spied(S3, "to_device") as (_, calls):
+        got = brotli_tpu_torch.decode_batch_v3(streams[:few], device="cuda",
+                                               dict_dev=dict_dev)
+    one = calls["to_device"][0][1]
+    del calls
+    fell = brotli_tpu_torch.fallback_stats()["lanes_fallback"] - fb0
+    check(one.groups == 1 and fell == 0
+          and b"".join(got) == data[: few * (len(data) // len(streams))],
+          f"[v3 main] {few} streams of one table set in {one.groups} "
+          f"group(s): not bit-exact, or {fell} lanes fell back")
+    print(f"[v3 main] {card_str}: {few} streams of one table set in one "
+          f"group of 128 lanes decoded bit-exact, 0 fallback lanes")
     t0 = time.perf_counter()
     ref = preflight_v3(streams, max_groups=V3_GROUPS)
     py_s = time.perf_counter() - t0
-    diff = batch_diff(again, ref)
+    diff = batch_diff(batch, ref)
     check(not diff, f"[v3 main] the native and the Python preflight differ "
           f"in {diff}")
-    print(f"[v3 main] {card_str}, os.cpu_count() {os.cpu_count()}: host "
-          f"preflight of the {len(streams)} streams: preflight_v3_native "
+    print(f"[v3 main] {card_str}, os.cpu_count() {os.cpu_count()}: the "
+          f"native staging at width 1024 equals batch_to_torch_v3 of the "
+          f"yardstick's preflight field for field; yardstick preflight of "
+          f"the {len(streams)} streams: preflight_v3_native "
           f"{min(nat):.4f} s (best of 3: {', '.join(f'{x:.4f}' for x in nat)}; "
-          f"{N_THREADS} threads), preflight_v3 (Python) {py_s:.3f} s (once), "
-          f"{py_s / min(nat):.1f}x; the two V3Batches equal field for field "
-          f"({again.groups} groups)")
-    return launches, batch
+          f"{N3.N_THREADS} threads), preflight_v3 (Python) {py_s:.3f} s "
+          f"(once), {py_s / min(nat):.1f}x; the two V3Batches equal field "
+          f"for field ({batch.groups} groups)")
+    return launches, batch, staged
 
 
 def phase_v3_block_types(card_str: str) -> int:
@@ -1661,6 +1803,7 @@ def phase_v3_block_types(card_str: str) -> int:
     fallback lane, and the call's host clock against the host decoder's."""
     import brotli_tpu_torch
     from brotli_tpu_torch.ops import decode3 as D3
+    from brotli_tpu_torch.ops import stage3_native as S3
 
     knobs = ENC_PLAIN_SETS["block types"]
     data = corpus(1024 * 4096)
@@ -1679,7 +1822,7 @@ def phase_v3_block_types(card_str: str) -> int:
     host_s = time.perf_counter() - t0
     check(host == want, "[v3 block types] the host decoder differs")
     fb0 = brotli_tpu_torch.fallback_stats()["lanes_fallback"]
-    with spied(D3, "preflight_v3_native") as (split, calls):
+    with spied(S3, "plan_and_fill", "to_device") as (split, calls):
         D3.KERNEL_LAUNCHES = 0
         D3.DIRECT_LAUNCHES = 0
         t0 = time.perf_counter()
@@ -1687,53 +1830,79 @@ def phase_v3_block_types(card_str: str) -> int:
         torch.cuda.synchronize()
         dev_s = time.perf_counter() - t0
         launches = D3.KERNEL_LAUNCHES
-    batch = calls["preflight_v3_native"][0][1]
+    check(len(calls["to_device"]) == 1, "[v3 block types] the native "
+          "staging refused the batch")
+    batch = calls["to_device"][0][1]
     fell = brotli_tpu_torch.fallback_stats()["lanes_fallback"] - fb0
-    check(batch is not None, "[v3 block types] the native preflight "
-          "refused the batch")
     check(got == want, "[v3 block types] output differs from the input")
     check(fell == 0, f"[v3 block types] {fell} lanes fell back")
     check(launches == 1 and D3.DIRECT_LAUNCHES == 0,
           f"[v3 block types] decode3 launches {launches}")
     check(batch.groups < old, "[v3 block types] no fewer groups")
     print(f"[v3 block types] {card_str}: {len(streams)} x 4096 B encoded on "
-          f"the card ({knobs}): Python preflight's binning {old} groups "
-          f"(over the cap of {D3.GROUP_CAP_V3}; counted in {old_s:.3f} s), "
-          f"native {batch.groups}; decoded bit-exact through "
-          f"decode_batch_v3(device='cuda') in {dev_s:.3f} s (host clock, of "
-          f"which native preflight {split['preflight_v3_native']:.4f} s), 0 "
-          f"fallback lanes, decode3 launches {launches}; host decoder on the "
-          f"same streams {host_s:.3f} s")
+          f"the card ({knobs}): Python preflight's binning {old} groups of "
+          f"1024 (over the cap of {D3.GROUP_CAP_V3}; counted in {old_s:.3f} "
+          f"s), native {batch.groups} groups of {batch.tb.width} "
+          f"({batch.parses} table sections parsed); decoded bit-exact "
+          f"through decode_batch_v3(device='cuda') in {dev_s:.3f} s (host "
+          f"clock, of which native plan and fill "
+          f"{split['plan_and_fill']:.4f} s, to_device "
+          f"{split['to_device']:.4f} s), 0 fallback lanes, decode3 launches "
+          f"{launches}; host decoder on the same streams {host_s:.3f} s")
     return launches
 
 
-def phase_v3_times(batch, card_str: str) -> dict:
+def same_lanes(a, perm_a, b, perm_b) -> bool:
+    """Two decode3 runs of one batch's streams in two layouts: each
+    stream's status rows and slot bytes equal."""
+    at_b = np.full(int(max(perm_a.max(), perm_b.max())) + 1, -1, np.int64)
+    at_b[perm_b[perm_b >= 0]] = np.flatnonzero(perm_b >= 0)
+    la = np.flatnonzero(perm_a >= 0)
+    lb = torch.from_numpy(at_b[perm_a[la]]).to(a[0].device)
+    la = torch.from_numpy(la).to(a[0].device)
+    w = min(a[0].shape[1], b[0].shape[1])
+    return (torch.equal(a[1][:, la], b[1][:, lb])
+            and torch.equal(a[0][la, :w], b[0][lb, :w]))
+
+
+def phase_v3_times(batch, staged, card_str: str) -> dict:
+    """decode3 on the v3 cell at both widths: the main path's groups of
+    128 lanes (staged by stage_v3_native) and the yardstick's of 1024
+    (batch_to_torch_v3), in turns with each other and with the direct
+    kernel; the plain version once, equal to every run."""
     from brotli_tpu_torch.ops import decode3 as D3
 
     tb = D3.batch_to_torch_v3(batch, "cuda")
+    tb128 = staged.tb
     total = int(batch.mlens.sum())
     state = {}
-    t = in_turns(lambda: state.__setitem__("nd", D3.decode3(tb, False)),
-                 lambda: state.__setitem__("o", D3.decode3_direct(tb, False)))
-    ms_nd = t["new"]
-    ms_d = device_ms(lambda: state.__setitem__("d", D3.decode3(tb, True)))
-    fill = device_ms(lambda: D3._alloc_outputs(tb))
+    t = in_turns(lambda: state.__setitem__("nd", D3.decode3(tb128, False)),
+                 lambda: state.__setitem__("w", D3.decode3(tb, False)))
+    ms_nd, ms_1024 = t["new"], t["old"]
+    td = in_turns(lambda: state.__setitem__("nd", D3.decode3(tb128, False)),
+                  lambda: state.__setitem__("o", D3.decode3_direct(tb, False)))
+    ms_d = device_ms(lambda: state.__setitem__("d", D3.decode3(tb128, True)))
+    fill = device_ms(lambda: D3._alloc_outputs(tb128))
     plain = plain_ms(lambda: state.__setitem__("p", D3.decode3_ref(tb, False)))
-    err = max(max_abs_err(state["nd"], state["p"]),
-              max_abs_err(state["d"], state["p"]))
+    err = max(max_abs_err(state["w"], state["p"]),
+              max_abs_err(state["o"], state["p"]))
     check(err == 0, f"decode3 != plain version on the v3 main batch: {err}")
-    d_err = max_abs_err(state["o"], state["p"])
-    check(d_err == 0, f"direct decode3 != plain version on the v3 main "
-          f"batch: {d_err}")
+    check(same_lanes(state["nd"], staged.perm, state["p"], batch.perm)
+          and same_lanes(state["d"], staged.perm, state["p"], batch.perm),
+          "decode3 at width 128 != the plain version on the v3 main batch")
     # bound: the words each lane consumed, the tables and scalars in, the
     # decoded bytes and the 16 status rows out
     words = int(state["nd"][1][4].to(torch.int64).sum().item())
-    tables = sum(t.numel() for t in (tb.lit, tb.cmd, tb.dist, tb.bsw, tb.cmap,
-                                     tb.dx, tb.consts, tb.lut, tb.tfm,
-                                     tb.scal))
-    bound = bound_ms(4 * (words + tables) + total + 4 * 16 * tb.n_lanes)
-    print(f"[v3 times] {card_str}: v3 cell: decode3 kernel {turns_str(t)} "
-          f"at use_dict=False, launch_config {v3_config(tb)}")
+    tables = sum(t.numel() for t in (tb128.lit, tb128.cmd, tb128.dist,
+                                     tb128.bsw, tb128.cmap, tb128.dx,
+                                     tb128.consts, tb128.lut, tb128.tfm,
+                                     tb128.scal))
+    bound = bound_ms(4 * (words + tables) + total + 4 * 16 * tb128.n_lanes)
+    print(f"[v3 times] {card_str}: v3 cell: decode3 kernel at width 128 "
+          f"(the main path's) against width 1024 {turns_str(t)}, against "
+          f"the direct kernel (width 1024) {turns_str(td)}, at "
+          f"use_dict=False; launch_config {v3_config(tb128)} (width 1024: "
+          f"{v3_config(tb)})")
     print(f"[v3 times] {card_str}: decode3 kernel {ms_nd:.4f} ms at "
           f"use_dict=False, {ms_d:.4f} ms at use_dict=True, per {total} B "
           f"batch ({total / (ms_nd * 1e-3) / 1e6:.2f} MB/s at use_dict=False; "
@@ -1741,15 +1910,21 @@ def phase_v3_times(batch, card_str: str) -> dict:
           f"output allocation and fill {fill:.4f} ms timed alone); bound "
           f"{bound[0]:.6f} ms ({words} words consumed; {bound[1]})")
     print(f"[v3 times] {card_str}: plain decode3_ref {plain:.3f} ms on the "
-          f"same batch (CUDA events, one run), max_abs_err {err}")
-    return {"ms": ms_nd, "ms_dict": ms_d, "direct_ms": t["old"],
-            "plain_ms": plain, "err": err, "bound": bound, "tb": tb}
+          f"same batch (CUDA events, one run), max_abs_err {err}; every "
+          "stream's bytes and status rows equal at both widths")
+    return {"ms": ms_nd, "ms_1024": ms_1024, "ms_dict": ms_d,
+            "direct_ms": td["old"], "plain_ms": plain, "err": err,
+            "bound": bound, "tb": tb}
 
 
 def phase_v3_full(card_str: str) -> int:
-    """decode_batch_v3_full on 1024 lanes of multi-metablock streams."""
+    """decode_batch_v3_full on 1024 lanes of multi-metablock streams; the
+    old host half against the new one in turns; each round's batch
+    through both kernels."""
     import brotli_tpu_torch
     from brotli_tpu_torch.ops import decode3 as D3
+    from brotli_tpu_torch.ops import stage3_native as S3
+    from brotli_tpu_torch.utils.profiling import profile_v3_decode
 
     text = corpus(65536)
     enc = brotli_tpu_torch.Encoder(quality=5, lgwin=18)
@@ -1768,8 +1943,9 @@ def phase_v3_full(card_str: str) -> int:
     host_s = time.perf_counter() - t0
     check(all(h == text for h in host), "v3 full: the host decoder differs")
     fb0 = brotli_tpu_torch.fallback_stats()["lanes_fallback"]
-    parts = ("run_batch_v3", "preflight_units_v3_native", "walk_units")
-    with spied(D3, *parts) as (s, calls):
+    with (spied(D3, "run_staged_v3", "_to_host") as (s, calls),
+          spied(S3, "walk_ptrs", "plan_and_fill", "to_device") as (s3, _),
+          round_units(lanes) as py_groups):
         D3.KERNEL_LAUNCHES = 0
         D3.DIRECT_LAUNCHES = 0
         t0 = time.perf_counter()
@@ -1777,35 +1953,40 @@ def phase_v3_full(card_str: str) -> int:
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         launches = D3.KERNEL_LAUNCHES
-    rounds = [batch for batch, _ in calls["run_batch_v3"]]
-    units = [u for u, _ in calls["preflight_units_v3_native"]]
+    rounds = [batch for batch, _ in calls["run_staged_v3"]]
     del calls
     fell = brotli_tpu_torch.fallback_stats()["lanes_fallback"] - fb0
     check(all(g == text for g in got), "v3 full output differs from the input")
     check(fell == 0, f"{fell} v3 full lanes fell back to the host decoder")
-    check(launches == len(rounds) == len(units) >= 2,
+    check(launches == len(rounds) == len(py_groups) >= 2,
           f"{launches} decode3 launches for {len(rounds)} rounds")
     check(D3.DIRECT_LAUNCHES == 0, "decode_batch_v3_full launched the "
           "direct kernel")
     groups = [b.groups for b in rounds]
-    py_groups = [python_groups_units(u) for u in units]
-    check(all(g <= o for g, o in zip(groups, py_groups)), "v3 full: more "
-          "groups than the Python preflight's binning")
+    check(all(b.tb.n_lanes <= 1024 * o for b, o in zip(rounds, py_groups)),
+          "v3 full: more lanes than the Python preflight's binning")
     print(f"[v3 full] {card_str}: 1024 lanes x 64 KB (streaming 16 KB "
-          f"metablocks, spliced 16 KB fragments, uncompressed) decoded bit-exact through "
-          f"decode_batch_v3_full(device='cuda') in {dt:.3f} s (host clock), "
-          f"of which native header walk {s['walk_units']:.3f} s, native "
-          f"preflight {s['preflight_units_v3_native']:.3f} s "
-          f"and run_batch_v3 (staging, kernel, copies back) "
-          f"{s['run_batch_v3']:.3f} s; host decoder on the same lanes "
-          f"{host_s:.3f} s; 0 fallback lanes, {len(rounds)} rounds, "
-          f"{launches} launches; groups a round {groups} (Python "
-          f"preflight's binning {py_groups})")
+          f"metablocks, spliced 16 KB fragments, uncompressed) decoded "
+          f"bit-exact through decode_batch_v3_full(device='cuda') in "
+          f"{dt:.3f} s (host clock, a first call), of which native header "
+          f"walk {s3['walk_ptrs']:.3f} s, native plan and fill "
+          f"{s3['plan_and_fill']:.3f} s, to_device {s3['to_device']:.3f} s "
+          f"and run_staged_v3 (kernel) {s['run_staged_v3']:.3f} s, status "
+          f"copies {s['_to_host']:.3f} s; host decoder on the same "
+          f"lanes {host_s:.3f} s; 0 fallback lanes, {len(rounds)} rounds, "
+          f"{launches} launches; groups of 128 a round {groups} (the Python "
+          f"preflight's binning, groups of 1024: {py_groups})")
+    rep = profile_v3_decode(lanes, full=True)
+    check(rep["same"] and rep["fallback_lanes"] == 0
+          and all(g == text for g in rep["out"]),
+          "[v3 full] the old and the new host halves' outputs differ")
+    print_halves("v3 full", rep, card_str)
     new = old = 0.0
     for k, batch in enumerate(rounds):
-        tb = D3.batch_to_torch_v3(batch, "cuda")
+        tb = batch.tb
         t = v3_pair_times(f"v3 full round {k + 1} (history prefix {tb.hrb} "
-                          f"B)", tb, card_str)
+                          f"B, {tb.groups} groups of {tb.width})", tb,
+                          card_str)
         new, old = new + t["new"], old + t["old"]
     print(f"[v3 times] {card_str}: v3 full, {len(rounds)} rounds: decode3 "
           f"kernel {new:.4f} ms, direct kernel {old:.4f} ms "
@@ -1906,17 +2087,17 @@ SPARSE = 32   # streams of a sparse batch, each with tables of its own
 
 def sparse_run(name: str, streams: list[bytes], want: list[bytes], decode,
                mod, runner: str, kernel_ms, card_str: str,
-               old_groups=None) -> None:
+               full: bool | None = None) -> None:
     """One sparse batch through `decode` (a driver at the port's cap) on
-    the card: the host clock of the call (and, on the v3 paths, of its
-    native preflight), peak device memory, the rounds' groups (on the v3
-    paths beside the Python preflight's binning, `old_groups` of each
-    round's preflight input) and the kernels' time on each staged round
-    (`kernel_ms`); against the host decoder on the same streams, which is
-    what the driver did at the reference's cap.  Output equal to the input,
-    no fallback lane."""
+    the card: the host clock of the call, peak device memory, the rounds'
+    groups (on the v3 paths, `full` False or True, beside the Python
+    preflight's binning of each round's units) and the kernels' time on
+    each staged round (`kernel_ms`); against the host decoder on the same
+    streams, which is what the driver did at the reference's cap.  Output
+    equal to the input, no fallback lane.  On the v3 paths, then the old
+    host half against the new one in turns (profile_v3_decode)."""
     import brotli_tpu_torch
-    from brotli_tpu_torch.ops import decode3 as D3
+    from brotli_tpu_torch.utils.profiling import profile_v3_decode
 
     t0 = time.perf_counter()
     host = [brotli_tpu_torch.host_decode(x) for x in streams]
@@ -1926,35 +2107,40 @@ def sparse_run(name: str, streams: list[bytes], want: list[bytes], decode,
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     fb0 = brotli_tpu_torch.fallback_stats()["lanes_fallback"]
-    pre = ("preflight_v3_native", "preflight_units_v3_native")
-    with spied(mod, runner) as (_, calls), spied(D3, *pre) as (pre_s, pres):
+    with spied(mod, runner) as (_, calls), round_units(streams) as py_rounds:
         t0 = time.perf_counter()
         got = decode(streams)
         torch.cuda.synchronize()
         dev_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2**30
     batches = [b for b, _ in calls[runner]]
-    inputs = [x for n in pre for x, _ in pres[n]]
-    del calls, pres
+    del calls
     fell = brotli_tpu_torch.fallback_stats()["lanes_fallback"] - fb0
     check(got == want, f"{name}: output differs from the input")
     check(fell == 0, f"{name}: {fell} lanes fell back to the host decoder")
     groups = [b.groups for b in batches]
-    if old_groups is None:
-        old, pre_txt = [SPARSE] * len(batches), ""
+    if full is None:
+        old = [SPARSE] * len(batches)
     else:
-        old = [old_groups(x) for x in inputs]
-        pre_txt = f", of which native preflight {sum(pre_s.values()):.4f} s"
+        old = py_rounds if full else [python_groups(streams)]
     check(groups == old == [SPARSE] * len(batches), f"{name}: rounds of "
           f"{groups} groups, the Python binning's {old}, not {SPARSE}")
     ms = [kernel_ms(b) for b in batches]
+    lanes = [b.tb.n_lanes for b in batches]
     print(f"[caps sparse] {card_str}: {name}: {len(streams)} streams, "
           f"{sum(map(len, want))} B, {len(batches)} round(s) of {groups} "
-          f"groups x 1024 lanes (the Python preflight's binning: {old}): "
-          f"{dev_s:.3f} s through the driver at the port's cap (host "
-          f"clock{pre_txt}), kernels {sum(ms):.4f} ms ({', '.join(f'{m:.4f}' for m in ms)}; "
-          f"time_device_fn), peak device memory {peak:.3f} GiB, 0 fallback "
-          f"lanes; host decoder on the same streams {host_s:.3f} s")
+          f"groups, {lanes} lanes (the Python preflight's binning: {old} "
+          f"groups of 1024): {dev_s:.3f} s through the driver at the port's "
+          f"cap (host clock, a first call), kernels {sum(ms):.4f} ms "
+          f"({', '.join(f'{m:.4f}' for m in ms)}; time_device_fn), peak "
+          f"device memory {peak:.3f} GiB, 0 fallback lanes; host decoder on "
+          f"the same streams {host_s:.3f} s")
+    if full is not None:
+        rep = profile_v3_decode(streams, full=full)
+        check(rep["same"] and rep["fallback_lanes"] == 0
+              and rep["out"] == want,
+              f"{name}: the old and the new host halves' outputs differ")
+        print_halves("caps sparse", rep, card_str, f"{name}: ")
 
 
 def phase_caps_sparse(data: bytes, card_str: str) -> None:
@@ -1990,9 +2176,8 @@ def phase_caps_sparse(data: bytes, card_str: str) -> None:
               "output bit for bit")
         return ms
 
-    def v3_ms(batch):
-        tb = D3.batch_to_torch_v3(batch, "cuda")
-        return device_ms(lambda: D3.decode3(tb))
+    def v3_ms(staged):
+        return device_ms(lambda: D3.decode3(staged.tb))
 
     want = [data[i * CHUNK: (i + 1) * CHUNK] for i in range(SPARSE)]
     v2 = [brotli_tpu_torch.encode_sharded(w, chunk_size=CHUNK,
@@ -2008,7 +2193,7 @@ def phase_caps_sparse(data: bytes, card_str: str) -> None:
     want = [text[i: i + ENC_CHUNK] for i in range(0, len(text), ENC_CHUNK)]
     sparse_run("v3, 32 KB streams", v3, want,
                lambda s: brotli_tpu_torch.decode_batch_v3(s, device="cuda"),
-               D3, "run_batch_v3", v3_ms, card_str, python_groups)
+               D3, "run_staged_v3", v3_ms, card_str, full=False)
     text = corpus(SPARSE * 65536 + 65536)[65536:]
     want, full = [], []
     for i in range(SPARSE):
@@ -2018,8 +2203,8 @@ def phase_caps_sparse(data: bytes, card_str: str) -> None:
         full.append(enc.update(want[-1]) + enc.finish())
     sparse_run("v3 full, 64 KB streams", full, want,
                lambda s: brotli_tpu_torch.decode_batch_v3_full(
-                   s, device="cuda"), D3, "run_batch_v3", v3_ms, card_str,
-               python_groups_units)
+                   s, device="cuda"), D3, "run_staged_v3", v3_ms, card_str,
+               full=True)
 
 
 # ---------------------------------------------------------------------------
@@ -2691,16 +2876,17 @@ def main() -> int:
     v3_err = walled("v3 kernel==plain", phase_v3_kernel_vs_plain, card_str)
     v3_data, v3_streams, v3_enc_launches = walled("v3 encode",
                                                   v3_main_streams, card_str)
-    v3_launches, v3_batch = walled("v3 main", phase_v3_main, v3_data,
-                                   v3_streams, card_str)
+    v3_launches, v3_batch, v3_staged = walled("v3 main", phase_v3_main,
+                                              v3_data, v3_streams, card_str)
     # each lane's expected bytes, in the staged batch's lane order
     v3_rows = torch.frombuffer(bytearray(v3_data), dtype=torch.uint8).view(
         -1, V3_BENCH["chunk_size"])[torch.from_numpy(v3_batch.perm)].cuda()
     # the first 2,048 streams and their bytes for [multi v3]
     v3_multi = (v3_data[:2048 * V3_BENCH["chunk_size"]], v3_streams[:2048])
     del v3_data, v3_streams
-    v3_times = walled("v3 times", phase_v3_times, v3_batch, card_str)
-    del v3_batch
+    v3_times = walled("v3 times", phase_v3_times, v3_batch, v3_staged,
+                      card_str)
+    del v3_batch, v3_staged
     bt_launches = walled("v3 block types", phase_v3_block_types, card_str)
     walled("v3 full", phase_v3_full, card_str)
     walled("caps", phase_caps, data, streams, v3_times.pop("tb"), v3_rows,
@@ -2772,6 +2958,9 @@ def main() -> int:
                max(v3_err, v3_times["err"]), v3_times["ms"],
                v3_times["plain_ms"], v3_times["bound"]),
          "direct_ms": v3_times["direct_ms"],
+         # ms: the main path's groups of 128 lanes; ms_1024: the
+         # yardstick's groups of 1024, in turns with it
+         "ms_1024": v3_times["ms_1024"],
          # launches on [v3 block types], counted from 0
          "block_types_launches": bt_launches},
         # ms, plain_ms and bound at the main encode's 1024 x 32 KB; the

@@ -72,6 +72,7 @@ FILE_SECONDS = {
     "tests/test_torch_e2e.py": 46.20,
     "tests/test_torch_host_copy.py": 36.68,
     "tests/test_native_tables.py": 34.43,
+    "tests/test_torch_stage3_native.py": 34.30,
     "tests/test_torch_multihost.py": 34.16,
     "tests/test_pallas_decode3.py": 33.02,
     "tests/test_torch_schedule.py": 23.42,

@@ -102,8 +102,8 @@ def test_full_path_matches_jax_and_data(name, monkeypatch):
     stream = FULL[name](data)
     assert brotli_tpu.decode(stream) == data
     rounds = []
-    run = D3.run_batch_v3
-    monkeypatch.setattr(D3, "run_batch_v3",
+    run = D3.run_staged_v3
+    monkeypatch.setattr(D3, "run_staged_v3",
                         lambda *a, **k: rounds.append(1) or run(*a, **k))
     before = _fallbacks()
     port = brotli_tpu_torch.decode_batch_v3_full([stream], device="cpu")
@@ -195,19 +195,30 @@ def test_more_than_8_block_types(k, monkeypatch):
 
 
 def test_refused_batch_is_host_decoded_and_counted():
-    """More table signatures than max_groups: the whole batch decodes on
-    the host, and every lane counts as a fallback."""
+    """More table signatures than max_groups' lanes hold: the whole batch
+    decodes on the host, and every lane counts as a fallback.  The port's
+    groups are 128 lanes wide and max_groups counts 1024-lane groups' worth
+    of lanes, so 9 table signatures overflow max_groups=1 there; 3 of them
+    fit and decode on the device, where JAX's preflight refuses them."""
     a = _source_text(600, skip=20000)
-    streams = [encode(a, quality=5), encode(a, quality=11),
-               brotli_tpu_torch.encode_device_batch(a, device="cpu",
-                                                    chunk_size=1024)[0]]
+    three = [encode(a, quality=5), encode(a, quality=11),
+             brotli_tpu_torch.encode_device_batch(a, device="cpu",
+                                                  chunk_size=1024)[0]]
+    assert P3.preflight_v3(three, max_groups=1) is None
+    before = brotli_tpu_torch.fallback_stats()
+    assert brotli_tpu_torch.decode_batch_v3(three, device="cpu",
+                                            max_groups=1) == [a, a, a]
+    assert brotli_tpu_torch.fallback_stats()["lanes_fallback"] == before[
+        "lanes_fallback"]
+    texts = [_source_text(600, skip=20000 + 1000 * k) for k in range(9)]
+    streams = [encode(t, quality=5) for t in texts]
     assert P3.preflight_v3(streams, max_groups=1) is None
     before = brotli_tpu_torch.fallback_stats()
     got = brotli_tpu_torch.decode_batch_v3(streams, device="cpu",
                                            max_groups=1)
     after = brotli_tpu_torch.fallback_stats()
-    assert got == [a, a, a]
-    assert after["lanes_fallback"] == before["lanes_fallback"] + 3
+    assert got == texts
+    assert after["lanes_fallback"] == before["lanes_fallback"] + 9
 
 
 def test_no_jax_import():

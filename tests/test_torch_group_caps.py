@@ -10,6 +10,7 @@ import brotli_tpu_torch
 from brotli_tpu_torch.ops import decode2 as D2
 from brotli_tpu_torch.ops import decode3 as D3
 from brotli_tpu_torch.ops import preflight2_native as N2
+from brotli_tpu_torch.ops import stage3_native as S3
 
 
 def _stub_v2(monkeypatch) -> dict:
@@ -61,17 +62,17 @@ class _Refuse:
 
 def test_v3_drivers_default_to_the_port_cap(monkeypatch):
     """decode_batch_v3 and decode_batch_v3_full default max_groups to
-    GROUP_CAP_V3 and hand it to the binning (preflight_v3_native /
-    preflight_units_v3_native); an explicit value (the reference's 4) goes
-    through as given."""
+    GROUP_CAP_V3 and hand it to the native staging, which bins
+    (stage_v3_native / stage_units_v3_native); an explicit value (the
+    reference's 4) goes through as given."""
     for name in ("decode_batch_v3", "decode_batch_v3_full"):
         param = inspect.signature(getattr(D3, name)).parameters["max_groups"]
         assert param.default == D3.GROUP_CAP_V3
     seen = []
-    monkeypatch.setattr(D3, "preflight_v3_native",
-                        lambda streams, max_groups: seen.append(max_groups))
-    monkeypatch.setattr(D3, "preflight_units_v3_native",
-                        lambda units, max_groups: seen.append(max_groups))
+    monkeypatch.setattr(S3, "stage_v3_native",
+                        lambda *a, max_groups, **k: seen.append(max_groups))
+    monkeypatch.setattr(S3, "stage_units_v3_native",
+                        lambda *a, max_groups, **k: seen.append(max_groups))
     monkeypatch.setattr(D3, "host_decode",
                         lambda s, custom_dictionary=None: b"")
     stream = brotli_tpu_torch.host_encode(b"hello, hello world " * 20,
