@@ -23,11 +23,24 @@ Stages, per batch of B_LANES chunks of up to CHUNK_N bytes:
    tensors);
 4. `segment_stats` (block_types > 1): k-means and Viterbi block typing;
 5. `group_hist`: a strided record sample binned by one bincount;
-6. host: lane clustering, Huffman tables and headers (numpy,
-   ops/encode_host.py, the port's copy of the reference's host steps);
+6. host: lane clustering (the lanes' literal features counted on the
+   device, `lane_features`; the numpy k-means), Huffman tables over
+   threads and each distinct header built once (ops/encode_host.py, the
+   port's copy of the reference's host steps, and its faster forms);
 7. `pack_records`: records -> LSB-first words, the CUDA kernel
    csrc/pack.cu on CUDA tensors (`pack_records_ref` on CPU tensors);
-8. `assemble_streams`: header words, body words and the bit tail per lane.
+8. assembly: each lane's byte count and word offset on the device
+   (`_lane_counts`), every sound lane's header words, body words and bit
+   tail end to end in one flat tensor (`_assemble_compact`), one pinned
+   fetch and a `bytes` a lane.
+
+The host half is laid out for the card (`stage_upload`,
+`prepare_pack_pinned`, `_encode_finish`): one pinned copy of the input
+laid out in lanes on the device, the pack kernel's small inputs in one
+pinned buffer and one copy, fetches through pinned memory that wait on the
+current stream only.  The yardstick it replaced stays callable for the
+tests and the in-turns timings (tools/enc_host_profile.py): `stage_input`,
+`_headers`, `prepare_pack`, `assemble_streams`, `_old_encode_finish`.
 
 Every stage works on (B, N) int32 tensors, lane first, like the JAX code.
 Where JAX relies on int32 wraparound (the hash multiplies), the arithmetic
@@ -41,6 +54,8 @@ from __future__ import annotations
 import ctypes
 import functools
 import logging
+import os
+from concurrent.futures import ThreadPoolExecutor
 from contextlib import contextmanager
 from dataclasses import dataclass
 
@@ -71,14 +86,18 @@ from .encode_host import (
     PACK_BR,
     _HIST_STRIDE_DEFAULT,
     _cluster_lanes,
+    _cluster_lanes_feats,
     _group_tables_from_hists,
+    _group_tables_once,
     _header_bits,
+    _header_words_native,
     _hg,
     _pack_consts,
     _pack_symbol_table,
     _plan_block_switches,
     _split_group_hist,
     _tab_chunks,
+    cluster_groups_native,
 )
 
 # Launches of the CUDA pack kernels (the segmented one, whose passes count
@@ -1217,116 +1236,50 @@ def pack_records_host(pb: PackBatch, serial: bool = False):
     return words, status
 
 
-def pack_records_ref(pb: PackBatch):
+def pack_records_ref(pb: PackBatch, rows_at_once: int = 512):
     """Plain PyTorch version of pack_records, on the batch's device.
 
     The per-lane machine of csrc/pack.cuh vectorised over lanes: one loop
     iteration is one record row for every lane (appends, then at most one
-    word out).  The bit buffer is four int64 tensors holding u32 limbs."""
+    word out).  What each row appends (its pieces, _pack_pieces) is looked
+    up for `rows_at_once` rows at a time.  The bit buffer is a (4, lanes)
+    int64 tensor of u32 limbs; bits past its fourth limb are dropped."""
     _check_pack(pb)
     dev = pb.device
     n, rows = pb.n_lanes, pb.rows
-    nt, nbt = pb.nt, pb.nbt
-    G, tab_n = pb.tab.shape
-    cmap_n = pb.cmap.shape[1]
     lane = torch.arange(n, dtype=_I64, device=dev)
-    tab = pb.tab.reshape(-1).to(_I64)
-    cmap = pb.cmap.reshape(-1).to(_I64)
-    consts = pb.consts.to(_I64)
-    grpv = pb.grp.to(_I64)
-    grp = grpv & 0xFF if nbt > 1 else grpv
-    mode = (grpv >> 8) & 1
-    grp_ok = (grp >= 0) & (grp < G)
-    cm_base = torch.where(grp_ok, grp, 0) * cmap_n
-    gbase = grp * tab_n
-    tab_total = G * tab_n
-    signed_ctx = None
-    if nt > 1 and nbt <= 1:
-        signed_ctx = grp_ok & (cmap[cm_base + 127] > 0)
-
-    def append(b, avail, v, nb):
-        nbu = nb & 63
-        mask = torch.where(nbu >= 32, _M32, (1 << nbu.clamp(max=31)) - 1)
-        v = v & mask
-        sh = avail & 31
-        limb = avail >> 5
-        lo = (v << sh) & _M32
-        hi = torch.where(sh > 0, v >> ((32 - sh) & 31), 0)
-        b0, b1, b2, b3 = b
-        b0 = b0 | torch.where(limb == 0, lo, 0)
-        b1 = b1 | torch.where(limb == 0, hi, torch.where(limb == 1, lo, 0))
-        b2 = b2 | torch.where(limb == 1, hi, torch.where(limb == 2, lo, 0))
-        b3 = b3 | torch.where(limb == 2, hi, torch.where(limb == 3, lo, 0))
-        return (b0, b1, b2, b3), (avail + nbu) & _M32
-
-    zero = torch.zeros(n, dtype=_I64, device=dev)
-    b = (pb.init0.to(_I64) & _M32, zero, zero, zero)
+    limb_no = torch.arange(4, dtype=_I64, device=dev)[:, None]
+    buf = torch.zeros((4, n), dtype=_I64, device=dev)
+    buf[0] = pb.init0.to(_I64) & _M32
     avail = pb.initav.to(_I64) & _M32
-    widx, ovf = zero, zero
+    widx = torch.zeros(n, dtype=_I64, device=dev)
+    ovf = torch.zeros(n, dtype=torch.bool, device=dev)
     words = torch.zeros((rows + 1) * n, dtype=_I32, device=dev)
     dummy = rows * n + lane   # row `rows` absorbs the rows that emit nothing
-    for r in range(rows):
-        r0 = pb.rec0[r].to(_I64)
-        r1 = pb.rec1[r].to(_I64)
-        kind = (r0 >> 28) & 0xF
-        code = r0 & 0x3FFF
-        is_cmd = kind == K_CMD
-        is_dist = kind == K_DIST
-        live = kind != K_PAD
-        ctx_u = (r0 >> 14) & 0x3F
-        ctx_s = (r0 >> 20) & 0x3F
-        seg = min(max(r - 1, 0) // pb.pseg, pb.nseg - 1)
-        if nbt > 1:
-            btype = pb.stype[seg].to(_I64)
-            cidx = btype * 64 + torch.where(mode > 0, ctx_s, ctx_u)
-            ok = grp_ok & (cidx >= 0) & (cidx < cmap_n)
-            tree = torch.where(ok, cmap[cm_base + cidx.clamp(0, cmap_n - 1)], 0)
-            lit_idx = tree * 256 + (code & 0xFF)
-        elif nt > 1:
-            ctx = torch.where(signed_ctx, ctx_s, ctx_u) & 127
-            tree = torch.where(grp_ok, cmap[cm_base + ctx], 0)
-            lit_idx = tree * 256 + (code & 0xFF)
-        else:
-            lit_idx = code & 0xFF
-        idx = torch.where(live, gbase + torch.where(
-            is_cmd, nt * 256 + code,
-            torch.where(is_dist, nt * 256 + 704 + code, lit_idx)), 0)
-        in_tab = (idx >= 0) & (idx < tab_total)
-        ent = torch.where(in_tab, tab[idx.clamp(0, tab_total - 1)], 0)
-        sym_nb = torch.where(live, ent >> 16, 0)
-        sym_bits = ent & 0xFFFF
-
-        cell = code >> 6
-        s2 = 2 * torch.where(cell < 2, cell, cell - 2)
-        ins_hi = torch.where(s2 < 32, 0x29850 >> s2.clamp(0, 31), 0) & 3
-        cp_hi = torch.where(s2 < 32, 0x26244 >> s2.clamp(0, 31), 0) & 3
-        ins_code = ins_hi * 8 + ((code >> 3) & 7)
-        cp_code = cp_hi * 8 + (code & 7)
-        ex1_nb = torch.where(
-            is_cmd, consts[ins_code & 127],
-            torch.where(is_dist & (code >= 16), ((code - 16) >> 1) + 1, 0))
-        ex1_v = torch.where(is_cmd, r1 & 0xFFFF,
-                            torch.where(is_dist, r1 & _M32, 0))
-        ex2_nb = torch.where(is_cmd, consts[(cp_code + 64) & 127], 0)
-        ex2_v = torch.where(is_cmd, (r1 >> 16) & 0xFFFF, 0)
-
-        if nbt > 1:
-            sww = pb.sw[seg].to(_I64) & _M32
-            sw_nb = torch.where(((r0 >> 26) & 1) > 0, sww >> 27, 0)
-            b, avail = append(b, avail, sww & 0x07FFFFFF, sw_nb)
-        b, avail = append(b, avail, sym_bits, sym_nb)
-        b, avail = append(b, avail, ex1_v, ex1_nb)
-        b, avail = append(b, avail, ex2_v, ex2_nb)
-
-        emit = avail >= 32
-        words[torch.where(emit, widx * n + lane, dummy)] = _wrap32(b[0])
-        b0, b1, b2, b3 = b
-        b = (torch.where(emit, b1, b0), torch.where(emit, b2, b1),
-             torch.where(emit, b3, b2), torch.where(emit, 0, b3))
-        avail = avail - torch.where(emit, 32, 0)
-        widx = widx + emit.to(_I64)
-        ovf = ovf | (avail > 80).to(_I64)
-    status = torch.stack([widx, avail, b[0], b[1], b[2], ovf])
+    first = 0 if pb.nbt > 1 else 1   # one block type: no block-switch piece
+    for lo in range(0, rows, rows_at_once):
+        hi = min(rows, lo + rows_at_once)
+        pieces = [(v.unbind(), nb.unbind())
+                  for v, nb in _pack_pieces(pb, lo, hi)[first:]]
+        for i in range(hi - lo):
+            for vs, nbs in pieces:
+                # the piece's bits (< 2^32) from bit `avail` on: its low
+                # part into limb avail >> 5, its high part into the next
+                t = vs[i] << (avail & 31)
+                limb = avail >> 5
+                buf |= (torch.where(limb_no == limb, t & _M32, 0)
+                        | torch.where(limb_no == limb + 1, t >> 32, 0))
+                avail = (avail + nbs[i]) & _M32
+            emit = avail >= 32
+            words[torch.where(emit, widx * n + lane, dummy)] = _wrap32(buf[0])
+            buf = torch.where(emit, torch.nn.functional.pad(buf[1:],
+                                                            (0, 0, 0, 1)),
+                              buf)
+            avail = avail - 32 * emit
+            widx = widx + emit
+            ovf |= avail > 80
+    status = torch.stack([widx, avail, buf[0], buf[1], buf[2],
+                          ovf.to(_I64)])
     return words[: rows * n].reshape(rows, n), _wrap32(status)
 
 
@@ -1545,6 +1498,62 @@ def stage_input(data: bytes, chunk_size: int, device: torch.device):
             torch.from_numpy(n_valid_np).to(device))
 
 
+def _pin_input(data: bytes, device: torch.device) -> torch.Tensor:
+    """The input's bytes, copied once into a uint8 host tensor of len(data)
+    bytes, pinned when `device` is a card; an input of 8 MB or more is
+    copied in COPY_PIECES pieces at once (numpy's copy releases the GIL)."""
+    host = torch.empty(len(data), dtype=torch.uint8,
+                       pin_memory=device.type == "cuda")
+    dst = host.numpy()
+    src = np.frombuffer(data, dtype=np.uint8)
+    if len(data) < (8 << 20):
+        dst[:] = src
+        return host
+    cuts = np.linspace(0, len(data), COPY_PIECES + 1).astype(np.int64)
+
+    def piece(k):
+        dst[cuts[k]: cuts[k + 1]] = src[cuts[k]: cuts[k + 1]]
+
+    list(_pool().map(piece, range(COPY_PIECES)))
+    return host
+
+
+def _lay_out(host: torch.Tensor, chunk_size: int, device: torch.device):
+    """The batch laid out on `device` from the host bytes: one asynchronous
+    copy of the whole input, then a zeroed (B_LANES, chunk_size + MATCH_CAP
+    + 4) uint8 tensor takes its n_chunks x chunk_size prefix, lane by lane,
+    on the device (so every byte after a lane's n_valid is zero, as
+    stage_input's); and n_valid (B_LANES,) int32, filled on the device."""
+    flat = host.to(device, non_blocking=True)
+    full, rem = divmod(host.numel(), chunk_size)
+    data_t = torch.zeros((B_LANES, chunk_size + MATCH_CAP + 4),
+                         dtype=torch.uint8, device=device)
+    n_valid = torch.zeros(B_LANES, dtype=_I32, device=device)
+    if full:
+        data_t[:full, :chunk_size] = flat[: full * chunk_size].view(
+            full, chunk_size)
+        n_valid[:full] = chunk_size
+    if rem:
+        data_t[full, :rem] = flat[full * chunk_size:]
+        n_valid[full] = rem
+    return data_t, n_valid
+
+
+def stage_upload(data: bytes, chunk_size: int, device: torch.device):
+    """stage_input's batch from one pinned copy of the input: (data_t,
+    n_valid numpy, n_valid tensor, the pinned host tensor, which must live
+    until its copy has ended)."""
+    n_chunks = -(-len(data) // chunk_size)
+    full = len(data) // chunk_size
+    n_valid_np = np.zeros(B_LANES, dtype=np.int32)
+    n_valid_np[:full] = chunk_size
+    if full < n_chunks:
+        n_valid_np[full] = len(data) - full * chunk_size
+    host = _pin_input(data, device)
+    data_t, n_valid = _lay_out(host, chunk_size, device)
+    return data_t, n_valid_np, n_valid, host
+
+
 def _encode_start(data: bytes, device: torch.device, chunk_size: int,
                   hash_stride: int, sample_stride: int,
                   max_distance: int | None = None, chain_depth: int = 2,
@@ -1567,11 +1576,12 @@ def _encode_start(data: bytes, device: torch.device, chunk_size: int,
         raise ValueError("block_types > 1 needs lit_ctx_trees > 1, "
                          "block_types <= 7 and chunk_size % block_seg == 0")
 
-    data_t, n_valid_np, n_valid = stage_input(data, chunk_size, device)
+    data_t, n_valid_np, n_valid, host = stage_upload(data, chunk_size, device)
+    # `pinned` keeps the host buffers of the encode's asynchronous copies
     state = dict(data=data, device=device, chunk_size=chunk_size,
                  n_chunks=n_chunks, n_valid_np=n_valid_np,
                  hist_stride=hist_stride, block_types=nbt,
-                 block_seg=block_seg)
+                 block_seg=block_seg, pinned=[host])
     mark = None if on_stage is None else (lambda name: on_stage(name, state))
     if mark is not None:
         mark("upload")
@@ -1636,6 +1646,30 @@ def _headers(state: dict, lgwin: int, tables: list, group_of: np.ndarray,
     return init0.view(np.int32), initav, h, hidx, hdr_stack
 
 
+def _table_arrays(tables: list, nt: int, nbt: int, table_groups: int):
+    """The pack kernel's (tab, cmap) int32 arrays of the groups' tables:
+    per-group flat code tables (the JAX stack without its sublane
+    replication, the first group's again for unused groups) and context
+    maps (| the SIGNED flag at entry 127 with one block type)."""
+    tabk = _tab_chunks(nt)
+    tab_np = np.concatenate([
+        _pack_symbol_table(t, nt).reshape(tabk, 8, 128)[:, 0, :].reshape(1, -1)
+        for t in tables
+    ])
+    n_used = len(tables)
+    if n_used < table_groups:
+        tab_np = np.concatenate([tab_np] + [tab_np[:1]] * (table_groups - n_used))
+    nbc = -(-(nbt * 64) // 128) if nbt > 1 else 1
+    cmap_np = np.zeros((table_groups, nbc * 128), np.int32)
+    for j, t in enumerate(tables):
+        if nbt > 1:
+            cmap_np[j, : nbt * 64] = t["cmap"]
+        else:
+            cmap_np[j, :64] = t["cmap"]
+            cmap_np[j, 127] = 1 if t.get("mode") == 3 else 0
+    return tab_np, cmap_np
+
+
 def prepare_pack(state: dict, lgwin: int, table_groups: int = 1,
                  lit_ctx_trees: int = 1):
     """Lane clustering, the group histogram, tables and headers: the pack
@@ -1649,7 +1683,6 @@ def prepare_pack(state: dict, lgwin: int, table_groups: int = 1,
     nbt = state["block_types"]
     pseg = state["block_seg"]
     nseg = chunk_size // pseg if nbt > 1 else 1
-    tabk = _tab_chunks(nt)
 
     def put(a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
@@ -1678,21 +1711,7 @@ def prepare_pack(state: dict, lgwin: int, table_groups: int = 1,
     ]
     for j, t in enumerate(tables):
         t["mode"] = group_modes[j] if nt > 1 else 0
-    # per-group flat tables: the JAX stack without its sublane replication
-    tab_np = np.concatenate([
-        _pack_symbol_table(t, nt).reshape(tabk, 8, 128)[:, 0, :].reshape(1, -1)
-        for t in tables
-    ])
-    if n_used < table_groups:
-        tab_np = np.concatenate([tab_np] + [tab_np[:1]] * (table_groups - n_used))
-    nbc = -(-(nbt * 64) // 128) if nbt > 1 else 1
-    cmap_np = np.zeros((table_groups, nbc * 128), np.int32)
-    for j, t in enumerate(tables):
-        if nbt > 1:
-            cmap_np[j, : nbt * 64] = t["cmap"]
-        else:
-            cmap_np[j, :64] = t["cmap"]
-            cmap_np[j, 127] = 1 if t.get("mode") == 3 else 0
+    tab_np, cmap_np = _table_arrays(tables, nt, nbt, table_groups)
 
     init0, initav, h_np, hidx, hdr_stack = _headers(state, lgwin, tables,
                                                     group_of, split)
@@ -1718,19 +1737,255 @@ def prepare_pack(state: dict, lgwin: int, table_groups: int = 1,
     return pb, (put(h_np), put(hidx), put(hdr_stack.view(np.int32))), h_np
 
 
+# C++ threads of the table groups' native context-map clusterings, and
+# pieces of the input's copy into pinned memory (memory-bound: a few
+# threads take most of what more would give)
+ENC_THREADS = min(8, os.cpu_count() or 1)
+COPY_PIECES = 4
+_POOL: ThreadPoolExecutor | None = None
+
+
+def _pool() -> ThreadPoolExecutor:
+    global _POOL
+    if _POOL is None:
+        _POOL = ThreadPoolExecutor(COPY_PIECES, thread_name_prefix="enc-copy")
+    return _POOL
+
+
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    """`t` as numpy: on a card, one copy into a pinned buffer and a wait on
+    the current stream only (other slots' streams run on)."""
+    if t.device.type != "cuda":
+        return t.numpy()
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    torch.cuda.current_stream(t.device).synchronize()
+    return host.numpy()
+
+
+def _to_device(fields: dict, device: torch.device, keep: list) -> dict:
+    """int32 numpy arrays to `device` through one host buffer (pinned on a
+    card; each array at a 64-word boundary) and one copy; returns a view
+    of the device buffer per array.  The host buffer goes into `keep`,
+    which must live until the copy has ended."""
+    offs, end = {}, 0
+    for k, a in fields.items():
+        offs[k] = end
+        end += -(-a.size // 64) * 64
+    host = torch.empty(max(end, 1), dtype=_I32,
+                       pin_memory=device.type == "cuda")
+    hn = host.numpy()
+    for k, a in fields.items():
+        hn[offs[k]: offs[k] + a.size] = np.ascontiguousarray(a).reshape(-1) \
+            .view(np.int32)
+    buf = host.to(device, non_blocking=True)
+    keep.append(host)
+    return {k: buf[offs[k]: offs[k] + a.size].view(a.shape)
+            for k, a in fields.items()}
+
+
+def lane_features(rec0_sample: torch.Tensor, n_chunks: int) -> np.ndarray:
+    """(n_chunks, 32) int64: each lane's literal count by (byte >> 3) over
+    the record sample, as _cluster_lanes counts them (kind (r >> 28) & 0xF
+    == K_LIT, bin (r & 0xFF) >> 3 on int32), counted where the sample lies
+    by one masked scatter_add; only the counts are fetched."""
+    s = rec0_sample[:n_chunks]
+    dev = s.device
+    lit = (((s >> 28) & 0xF) == K_LIT).to(_I32)
+    key = (torch.arange(n_chunks, dtype=_I64, device=dev)[:, None] * 32
+           + ((s & 0xFF) >> 3).to(_I64))
+    counts = torch.zeros(n_chunks * 32, dtype=_I32, device=dev)
+    counts.scatter_add_(0, key.reshape(-1), lit.reshape(-1))
+    return _to_host(counts).reshape(n_chunks, 32).astype(np.int64)
+
+
+def _group_hist_fetch(rec0, group_of: np.ndarray, signed_mode: np.ndarray,
+                      n_used: int, stride: int, nbt: int, btype, keep: list):
+    """group_hist of the lanes' groups and context modes (one copy of both
+    to the device), fetched."""
+    lanes = _to_device({"g": np.stack([group_of.astype(np.int32),
+                                       signed_mode])}, rec0.device, keep)["g"]
+    return _to_host(group_hist(rec0, lanes[0], lanes[1], n_used, stride,
+                               nbt, btype))
+
+
+def _group_tables_all(flat_hist: np.ndarray, n_used: int, nbt: int,
+                      nt: int) -> list:
+    """Every group's _group_tables_once, in group order: with context
+    trees, the groups' native context-map clusterings first, in one call
+    over ENC_THREADS C++ threads (cluster_groups_native), then each
+    group's fold and codes."""
+    hists = [_split_group_hist(flat_hist, j, nbt) for j in range(n_used)]
+    clustered = [None] * n_used
+    if nt > 1:
+        clustered = cluster_groups_native(np.stack([h[0] for h in hists]),
+                                          ENC_THREADS)
+    return [_group_tables_once(*h, nt, c) for h, c in zip(hists, clustered)]
+
+
+def _headers_once(state: dict, lgwin: int, tables: list,
+                  group_of: np.ndarray, split: tuple | None):
+    """_headers' result, each distinct header built once, in C++
+    (_header_words_native, the same bits as _header_bits):
+    (init0, initav, h, hidx, hdr_stack), the distinct headers sorted by
+    key as _headers sorts them."""
+    n = state["n_chunks"]
+    # a lane's key (size, group[, first block length, first type]) as one
+    # int64 ordered as the tuples are: sizes below 2^16, groups below 2^20,
+    # first block lengths below 2^15 (at most 16,624) and types below 8
+    key = (state["n_valid_np"][:n].astype(np.int64) << 20) \
+        | group_of[:n].astype(np.int64)
+    if split is not None:
+        first_blen, t0_np, group_splits = split
+        key = (key << 18) | (first_blen[:n].astype(np.int64) << 3) \
+            | t0_np[:n].astype(np.int64)
+    keys, inv = np.unique(key, return_inverse=True)
+    inv = inv.reshape(-1)
+    built = []
+    for k in keys.tolist():
+        sp = None
+        if split is not None:
+            k, first, t0 = k >> 18, (k >> 3) & 0x7FFF, k & 7
+            sp = dict(nbt=state["block_types"], first_blen=first, t0=t0,
+                      **group_splits[k & 0xFFFFF])
+        built.append(_header_words_native(k >> 20, lgwin,
+                                          tables[k & 0xFFFFF], sp))
+    max_h = max([len(b[0]) for b in built] + [1])
+    hdr_stack = np.zeros((max(1, len(built)), max_h), np.uint32)
+    for j, b in enumerate(built):
+        hdr_stack[j, : len(b[0])] = b[0]
+    h = np.zeros(B_LANES, np.int32)
+    hidx = np.zeros(B_LANES, np.int32)
+    init0 = np.zeros(B_LANES, np.uint32)
+    initav = np.zeros(B_LANES, np.int32)
+    h[:n] = np.asarray([len(b[0]) for b in built], np.int32)[inv]
+    hidx[:n] = inv
+    init0[:n] = np.asarray([b[1] for b in built], np.uint32)[inv]
+    initav[:n] = np.asarray([b[2] for b in built], np.int32)[inv]
+    return init0.view(np.int32), initav, h, hidx, hdr_stack
+
+
+def _transpose_records(rec0: torch.Tensor, rec1: torch.Tensor):
+    """rec0, rec1 (B, R) -> (rpad, B) record-major on their device, rows
+    padded with zero (PAD) records to a multiple of PACK_BR."""
+    B, R = rec0.shape
+    rpad = -(-R // PACK_BR) * PACK_BR
+    out = []
+    for r in (rec0, rec1):
+        t = torch.empty((rpad, B), dtype=_I32, device=r.device)
+        t[:R] = r.t()
+        t[R:] = 0
+        out.append(t)
+    return out
+
+
+def prepare_pack_pinned(state: dict, lgwin: int, table_groups: int = 1,
+                        lit_ctx_trees: int = 1):
+    """prepare_pack's result (PackBatch, (h, hidx, hdr_stack) tensors, h
+    numpy), laid out for the card: the lanes' literal features counted on
+    the device (lane_features), the group histogram fetched through a
+    pinned buffer, the groups' context maps clustered over C++ threads
+    (_group_tables_all), each distinct header built once (_headers_once),
+    and the pack kernel's small inputs with h, hidx and the header stack
+    in one pinned buffer and one copy (_to_device); the record transposes
+    stay on the device."""
+    dev = state["device"]
+    chunk_size = state["chunk_size"]
+    n_chunks = state["n_chunks"]
+    rec0, rec1 = state["rec0"], state["rec1"]
+    keep = state["pinned"]
+    nt = lit_ctx_trees
+    nbt = state["block_types"]
+    pseg = state["block_seg"]
+    nseg = chunk_size // pseg if nbt > 1 else 1
+
+    feats = lane_features(state["rec0_sample"], n_chunks)
+    group_of, group_modes = _cluster_lanes_feats(feats, table_groups,
+                                                 n_chunks)
+    n_used = len(group_modes)
+    signed_mode = (np.asarray(group_modes)[group_of] == 3).astype(np.int32)
+    btype = None
+    split = None
+    if nbt > 1:
+        seg = _to_host(torch.stack([state["seg_type"],
+                                    state["seg_litcnt"]]).to(_I32))
+        sw_words, first_blen, t0_np, group_splits = _plan_block_switches(
+            seg[0], seg[1], n_chunks, group_of, n_used, nbt)
+        split = (first_blen, t0_np, group_splits)
+        # record row j holds position j-1; row 0 is the first command
+        cols = torch.arange(0, rec0.shape[1], state["hist_stride"],
+                            device=dev)
+        btype = state["seg_type"][:, ((cols - 1) // pseg).clamp(0, nseg - 1)]
+    flat_hist = _group_hist_fetch(rec0, group_of, signed_mode, n_used,
+                                  state["hist_stride"], nbt, btype, keep)
+    tables = _group_tables_all(flat_hist, n_used, nbt, nt)
+    for j, t in enumerate(tables):
+        t["mode"] = group_modes[j] if nt > 1 else 0
+    tab_np, cmap_np = _table_arrays(tables, nt, nbt, table_groups)
+
+    init0, initav, h_np, hidx, hdr_stack = _headers_once(
+        state, lgwin, tables, group_of, split)
+    grp_enc = group_of.astype(np.int32)
+    fields = dict(tab=tab_np, cmap=cmap_np, consts=_pack_consts()[0],
+                  grp=grp_enc, init0=init0, initav=initav, h=h_np,
+                  hidx=hidx, hdr_stack=hdr_stack.view(np.int32))
+    if nbt > 1:
+        fields["grp"] = grp_enc | (signed_mode << 8)
+        fields["sw"] = sw_words.T.view(np.int32)
+    t = _to_device(fields, dev, keep)
+    rec0_t, rec1_t = _transpose_records(rec0, rec1)
+    stype_t = state["seg_type"].t().contiguous() if nbt > 1 else None
+    pb = PackBatch(
+        rec0=rec0_t, rec1=rec1_t, tab=t["tab"], cmap=t["cmap"],
+        consts=t["consts"], grp=t["grp"], init0=t["init0"],
+        initav=t["initav"], sw=t.get("sw"), stype=stype_t,
+        nt=nt, nbt=nbt, pseg=pseg, nseg=nseg,
+    )
+    return pb, (t["h"], t["hidx"], t["hdr_stack"]), h_np
+
+
 def _encode_mid(state: dict, lgwin: int, table_groups: int = 1,
                 lit_ctx_trees: int = 1, on_stage=None) -> None:
-    """Host tables and headers, then the pack kernel and the assembly
+    """Host tables and headers (prepare_pack_pinned), then the pack kernel
+    and each lane's word offset in the compact output, all queued (the
+    status copy back into pinned memory starts here too)
     (device_encode._encode_mid).  The state keeps the pack kernel's input
     (`pb`) and output (`words`, `status`)."""
     on_stage = on_stage or (lambda name, st: None)
-    pb, hdr, h_np = prepare_pack(state, lgwin, table_groups, lit_ctx_trees)
-    state.update(pb=pb, h_np=h_np, lgwin=lgwin)
+    pb, hdr, h_np = prepare_pack_pinned(state, lgwin, table_groups,
+                                        lit_ctx_trees)
+    state.update(pb=pb, h_np=h_np, lgwin=lgwin, hdr=hdr)
     on_stage("host tables", state)
     words, status = pack_records(pb)
     state.update(words=words, status=status)
     on_stage("pack", state)
-    state.update(swords=assemble_streams(words, status, *hdr))
+    state.update(counts=_lane_counts(status, hdr[0], state["n_chunks"]))
+
+
+def _lane_counts(status: torch.Tensor, h: torch.Tensor, n_chunks: int):
+    """Each lane's byte count (h*32 + widx*32 + avail + 7) // 8 and its
+    word offset in the compact output (a prefix sum of its h + widx +
+    (avail + 31) // 32 words; 0 words for lanes past n_chunks and lanes
+    whose buffer overflowed), computed on the status's device; the status
+    and the counts start back to the host at once: (host (9, B) int64
+    tensor, pinned on a card, and the copy's event (None on the CPU),
+    word counts, word offsets) as device tensors."""
+    st = status.to(_I64)
+    h64 = h.to(_I64)
+    widx, avail = st[0], st[1]
+    lane = torch.arange(st.shape[1], device=st.device)
+    sound = (lane < n_chunks) & (st[5] == 0)
+    nw = torch.where(sound, h64 + widx + (avail + 31) // 32, 0)
+    woff = torch.cumsum(nw, 0) - nw
+    meta = torch.cat([st, ((h64 * 32 + widx * 32 + avail + 7) // 8)[None],
+                      woff[None], nw[None]])
+    if status.device.type != "cuda":
+        return meta, None, nw, woff
+    host = torch.empty(meta.shape, dtype=_I64, pin_memory=True)
+    host.copy_(meta, non_blocking=True)
+    ev = torch.cuda.Event()
+    ev.record(torch.cuda.current_stream(status.device))
+    return host, ev, nw, woff
 
 
 def stream_sizes(state: dict) -> np.ndarray:
@@ -1741,8 +1996,9 @@ def stream_sizes(state: dict) -> np.ndarray:
     return (total_bits[:n_chunks] + 7) // 8
 
 
-def _encode_finish(state: dict) -> list[bytes]:
-    """Fetch the assembled words and cut each lane's bytes; lanes whose
+def _old_encode_finish(state: dict) -> list[bytes]:
+    """The yardstick's finish, on a state that holds assemble_streams'
+    `swords`: fetch the assembled words and cut each lane's bytes; lanes whose
     buffer overflowed are encoded on the host and counted."""
     data = state["data"]
     chunk_size = state["chunk_size"]
@@ -1765,6 +2021,80 @@ def _encode_finish(state: dict) -> list[bytes]:
             continue
         nbytes = (int(h_np[s] + widx[s]) * 32 + int(avail[s]) + 7) // 8
         out.append(words[s, : int(nw[s])].tobytes()[:nbytes])
+    _note_fallbacks(n_chunks, n_fallback)
+    return out
+
+
+def _assemble_compact(words: torch.Tensor, status: torch.Tensor,
+                      h: torch.Tensor, hidx: torch.Tensor,
+                      hdr_stack: torch.Tensor, nw: torch.Tensor,
+                      woff: torch.Tensor, total: int) -> torch.Tensor:
+    """Every lane's stream end to end in one flat int32 tensor of `total`
+    words on the device: lane l's nw[l] words from word woff[l] (its h
+    header words, row hidx of the distinct-header stack; its widx body
+    words; the buffer limbs that hold bits, b0, then b1), so each lane
+    starts on a word and holds (h + widx) * 4 + ceil(avail / 8) bytes of
+    its stream.  assemble_streams' words, without its (lanes, maxH + rows
+    + 2) table.  JAX's assembly is an XLA stage (device_encode.
+    _jitted_assemble), so torch ops do it here."""
+    dev = words.device
+    rows, n = words.shape
+    lane = torch.repeat_interleave(torch.arange(n, device=dev), nw,
+                                   output_size=total)
+    j = torch.arange(total, dtype=_I64, device=dev) - woff[lane]
+    hl = h.to(_I64)[lane]
+    t = j - hl
+    widx = status[0].to(_I64)[lane]
+    head = hdr_stack[hidx.long()[lane], j.clamp(0, hdr_stack.shape[1] - 1)]
+    body = words.reshape(-1)[t.clamp(0, max(rows - 1, 0)) * n + lane]
+    limb = torch.where(t == widx, status[2][lane],
+                       torch.where(t == widx + 1, status[3][lane], 0))
+    return torch.where(j < hl, head, torch.where(t < widx, body, limb))
+
+
+def _fetch_compact(flat: torch.Tensor) -> np.ndarray:
+    """The compact words as host bytes: one copy into pinned memory and
+    one wait on the current stream (none on the CPU)."""
+    return _to_host(flat).view(np.uint8)
+
+
+def _cut_streams(buf: np.ndarray, meta: np.ndarray, n_chunks: int):
+    """One `bytes` a sound lane, cut from the host buffer with one copy;
+    None where the lane's buffer overflowed.  meta: _lane_counts' rows
+    (status, byte counts, word offsets, word counts)."""
+    ovf, nbytes, woff = meta[5], meta[6], meta[7]
+    out: list[bytes | None] = []
+    for s in range(n_chunks):
+        if ovf[s]:
+            out.append(None)
+            continue
+        a = 4 * int(woff[s])
+        out.append(buf[a: a + int(nbytes[s])].tobytes())
+    return out
+
+
+def _encode_finish(state: dict) -> list[bytes]:
+    """Wait for the status and the lanes' counts, write the sound lanes'
+    streams end to end on the device (_assemble_compact), fetch them
+    through pinned memory and cut a `bytes` a lane; lanes whose buffer
+    overflowed are encoded on the host and counted."""
+    data = state["data"]
+    chunk_size = state["chunk_size"]
+    n_chunks = state["n_chunks"]
+    host, ev, nw, woff = state["counts"]
+    if ev is not None:
+        ev.synchronize()
+    meta = host.numpy()
+    total = int(meta[7][-1] + meta[8][-1])
+    flat = _assemble_compact(state["words"], state["status"],
+                             *state["hdr"], nw, woff, total)
+    out = _cut_streams(_fetch_compact(flat), meta, n_chunks)
+    n_fallback = 0
+    for s, stream in enumerate(out):
+        if stream is None:
+            n_fallback += 1
+            chunk = data[s * chunk_size: (s + 1) * chunk_size]
+            out[s] = host_encode(chunk, quality=2, lgwin=state["lgwin"])
     _note_fallbacks(n_chunks, n_fallback)
     return out
 

@@ -19,6 +19,9 @@ these copies to the originals table by table.
 
 from __future__ import annotations
 
+import ctypes
+from pathlib import Path
+
 import numpy as np
 
 from ..constants import (
@@ -217,6 +220,178 @@ def _cluster_lanes(rec0_sample: np.ndarray, n_groups: int,
         total = max(int(f.sum()), 1)
         modes.append(3 if int(f[16:].sum()) / total > 0.25 else 2)
     return group, modes
+
+
+def _cluster_lanes_feats(feats: np.ndarray, n_groups: int, n_chunks: int):
+    """_cluster_lanes from the lanes' (n_chunks, 32) int64 literal counts
+    (ops/device_encode.lane_features counts them on the device): the same
+    k-means on the same integers, so the same (group (B_LANES,), modes)."""
+    group = np.zeros(B_LANES, np.int64)
+    if n_groups > 1:
+        group[:n_chunks] = _cluster_rows(feats[:n_chunks], n_groups)
+    n_used = int(group[:n_chunks].max()) + 1
+    modes = []
+    for j in range(n_used):
+        f = feats[:n_chunks][group[:n_chunks] == j].sum(axis=0)
+        total = max(int(f.sum()), 1)
+        modes.append(3 if int(f[16:].sum()) / total > 0.25 else 2)
+    return group, modes
+
+
+def _fold_costs(hists: np.ndarray) -> np.ndarray:
+    """_group_tables_from_hists' `cost` of each row of `hists` (rows, 256)
+    int64, the same doubles: each row's t * log2(max(t, 1)) less the
+    pairwise `.sum()` of its nonzero counts' n * log2(n), taken from one
+    log2 over every row's nonzero counts (numpy's log2 is elementwise);
+    0.0 for an empty row."""
+    t = hists.sum(axis=1)
+    mask = hists > 0
+    nz = hists[mask]
+    vals = nz * np.log2(nz)
+    ends = np.cumsum(mask.sum(axis=1))
+    starts = np.concatenate([[0], ends[:-1]])
+    sums = np.asarray([vals[a:b].sum() for a, b in zip(starts.tolist(),
+                                                       ends.tolist())])
+    return np.where(t > 0, t * np.log2(np.maximum(t, 1)) - sums, 0.0)
+
+
+def _group_tables_once(lit_hists, cmd_hist, dist_hist, nt: int,
+                       clustered):
+    """_group_tables_from_hists with no step repeated: the clusters'
+    weights and sums are one np.add.at each, and the fold computes each
+    kept cluster's cost once (not once a candidate) and a folded cluster's
+    costs against all the kept ones at once (_fold_costs).  The fold's
+    doubles are the same, so its argmin (the first minimum, as the loop's
+    strict `<` takes), and the tables, are the same.  `clustered` is the
+    native clustering's (count, map) of these literal histograms, made
+    already (cluster_groups_native); None with one tree."""
+    from ..native import build_huffman_code_native as build_huffman_code
+
+    n_rows = lit_hists.shape[0]
+    if nt == 1:
+        cmap = np.zeros(n_rows, np.int64)
+        tree_hists = lit_hists.sum(axis=0, keepdims=True)
+    else:
+        n_used, cm = clustered
+        cmap = np.asarray(cm, np.int64)
+        if n_used > nt:
+            w = np.zeros(n_used, np.int64)
+            np.add.at(w, cmap, lit_hists.sum(axis=1))
+            keep = np.argsort(-w)[:nt]
+            keep_set = set(keep.tolist())
+            hs = np.zeros((n_used, lit_hists.shape[1]), np.int64)
+            np.add.at(hs, cmap, lit_hists)
+            hk = hs[keep]
+            kept_cost = _fold_costs(hk)
+            remap = np.arange(n_used)
+            for j in range(n_used):
+                if j not in keep_set:
+                    d = _fold_costs(hs[j][None, :] + hk) - kept_cost
+                    remap[j] = keep[int(np.argmin(d))]   # the first minimum
+            cmap = np.unique(remap[cmap], return_inverse=True)[1] \
+                .reshape(-1).astype(np.int64)
+        n_used = int(cmap.max()) + 1
+        tree_hists = np.zeros((n_used, 256), np.int64)
+        np.add.at(tree_hists, cmap, lit_hists)
+    lits = [
+        build_huffman_code(h * 8 + 1, NUM_LITERAL_SYMBOLS) for h in tree_hists
+    ]
+    return dict(
+        lits=lits, cmap=cmap,
+        cmd=build_huffman_code(cmd_hist, NUM_COMMAND_SYMBOLS),
+        dist=build_huffman_code(dist_hist, DIST_ALPHABET),
+    )
+
+
+_ENC_LIB: ctypes.CDLL | None = None
+
+
+def _enc_lib() -> ctypes.CDLL:
+    """native/enc_header.cpp, built into brotli_tpu_torch/build/ at first
+    use (build._build, gated on a hash of it and of table_builder.cpp,
+    which it includes); a failed build raises."""
+    global _ENC_LIB
+    if _ENC_LIB is None:
+        from ..build import _build
+
+        native = Path(__file__).resolve().parent.parent / "native"
+        path = _build(
+            "brotli_tpu_torch_enc_header",
+            ["g++", "-O3", "-march=native", "-fPIC", "-std=c++17"],
+            ["g++", "-shared"], [native / "enc_header.cpp"],
+            deps=[native / "table_builder.cpp"])
+        lib = ctypes.CDLL(str(path))
+        P, I32, I64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
+        fn = lib.brotli_enc_header
+        fn.restype = I64
+        fn.argtypes = ([I32, I32, I32, P, P, I32, P, I32, I32, P, P, I32, I32,
+                        P, P, P, I64])
+        cg = lib.brotli_enc_cluster_groups
+        cg.restype = None
+        cg.argtypes = [P, I32, I32, I32, I32, P, P, I32]
+        _ENC_LIB = lib
+    return _ENC_LIB
+
+
+def cluster_groups_native(lit_hists: np.ndarray, n_threads: int) -> list:
+    """native_cluster_context_map (the native clustering of
+    _group_tables_from_hists) of each group's literal histograms
+    (groups, rows, 256) int64, the groups over `n_threads` C++ threads in
+    one call: [(cluster count, map (rows,) int64)] a group."""
+    g, rows, syms = lit_hists.shape
+    hists = np.ascontiguousarray(lit_hists, np.int64)
+    cmaps = np.zeros((g, rows), np.int32)
+    counts = np.zeros(g, np.int32)
+    if rows <= 1:
+        return [(1, np.zeros(max(1, rows), np.int64)) for _ in range(g)]
+    _enc_lib().brotli_enc_cluster_groups(
+        hists.ctypes.data, g, rows, syms, 64, cmaps.ctypes.data,
+        counts.ctypes.data, n_threads)
+    return [(int(counts[j]), cmaps[j].astype(np.int64)) for j in range(g)]
+
+
+_BLEN = None
+
+
+def _header_words_native(mlen: int, lgwin: int, grp_tables: dict,
+                         split: dict | None = None):
+    """One header, built once through native/enc_header.cpp (the C++ form
+    of _header_bits: the same bits): (its whole 32-bit words as uint32,
+    the bits of its last partial word, their count)."""
+    global _BLEN
+    if _BLEN is None:
+        from ..constants import BLOCK_LENGTH_N_BITS, BLOCK_LENGTH_OFFSET
+
+        _BLEN = [np.ascontiguousarray(np.asarray(x, np.int32))
+                 for x in (BLOCK_LENGTH_OFFSET, BLOCK_LENGTH_N_BITS)]
+    lits = grp_tables["lits"]
+    nt = len(lits)
+    trees = [*lits, grp_tables["cmd"], grp_tables["dist"]]
+    depths = np.concatenate([np.asarray(t[0], np.uint8) for t in trees])
+    meta = np.asarray([[t[2], *t[3]] for t in trees], np.int32)
+    nbt = split["nbt"] if split else 1
+    cmap = np.ascontiguousarray(np.asarray(grp_tables["cmap"], np.int32))
+    hists = [np.zeros(1, np.int64)] * 2
+    first_blen = t0 = 0
+    if nbt > 1:
+        hists = [np.ascontiguousarray(np.asarray(split[k], np.int64))
+                 for k in ("thist", "lhist")]
+        first_blen, t0 = int(split["first_blen"]), int(split["t0"])
+    out = np.empty(1 << 16, np.uint8)
+    bits = _enc_lib().brotli_enc_header(
+        mlen, lgwin, nt, depths.ctypes.data, meta.ctypes.data, DIST_ALPHABET,
+        cmap.ctypes.data, grp_tables.get("mode", 0), nbt,
+        hists[0].ctypes.data, hists[1].ctypes.data, first_blen, t0,
+        _BLEN[0].ctypes.data, _BLEN[1].ctypes.data, out.ctypes.data,
+        out.size)
+    if bits < 0:
+        raise RuntimeError("a stream header longer than 64 KB")
+    n = -(-bits // 32)
+    words = np.zeros(n, np.uint32)
+    words.view(np.uint8)[: (bits + 7) // 8] = out[: (bits + 7) // 8]
+    rem = bits % 32
+    partial = int(words[bits // 32]) & ((1 << rem) - 1) if rem else 0
+    return words[: bits // 32], partial, rem
 
 
 def _plan_block_switches(seg_type: np.ndarray, seg_litcnt: np.ndarray,

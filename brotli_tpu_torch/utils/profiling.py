@@ -438,19 +438,19 @@ def _old_decode_v3_full(streams, dev, max_groups, dict_dev, parts: _Parts):
 def profile_v3_decode(streams: list[bytes], device: torch.device | str = "cuda",
                       *, full: bool = False, max_groups: int | None = None,
                       dict_dev=None, rounds: int = 5) -> dict:
-    """The v3 round trip's two host halves on `streams`, in turns: "old",
+    """The v3 round trip's two host halves on `streams`: "old",
     the yardstick's (the joined streams, the native parse with numpy
     staging in the TPU's layout, pageable copies, a Python loop over the
     lanes; on the full path each unit's earlier output rebuilt as bytes on
     the host every round), and "new", the drivers themselves
     (decode_batch_v3, or decode_batch_v3_full with `full`: the native
     staging into one pinned buffer, the pinned unpack, the history kept on
-    the card).  Each half runs once first (reported apart), then `rounds`
-    times, the two in turns; "best" is each part's best of those, host
-    clock through a synchronise.  Returns {"bytes", "fallback_lanes",
-    "out" (the new half's first output), "same" (the halves' first
-    outputs equal), "old": {"first", "best"}, "new": {...}}: part name ->
-    seconds, "call" the whole call."""
+    the card).  Each half runs once first, its output compared; then the
+    new one runs `rounds` times more and "best" is each part's best of
+    those, host clock through a synchronise.  Returns {"bytes",
+    "fallback_lanes", "out" (the new half's first output), "same" (the
+    halves' outputs equal), "old": {"first"}, "new": {"first", "best"}}:
+    part name -> seconds, "call" the whole call."""
     from ..ops import decode3 as D3
     from ..ops import stage3_native as S3
     from ..ops.decode2 import fallback_stats
@@ -494,13 +494,9 @@ def profile_v3_decode(streams: list[bytes], device: torch.device | str = "cuda",
     outs = {}
     for name in ("old", "new"):
         first, outs[name] = call(name)
-        res[name] = {"first": first, "runs": []}
-    for r in range(rounds):
-        for name in (("old", "new") if r % 2 == 0 else ("new", "old")):
-            res[name]["runs"].append(call(name)[0])
-    for rr in res.values():
-        runs = rr.pop("runs")
-        rr["best"] = {k: min(run[k] for run in runs) for k in runs[0]}
+        res[name] = {"first": first}
+    runs = [call("new")[0] for _ in range(rounds)]
+    res["new"]["best"] = {k: min(run[k] for run in runs) for k in runs[0]}
     return {"bytes": sum(map(len, outs["new"])),
             "fallback_lanes": fallback_stats()["lanes_fallback"] - fb0,
             "out": outs["new"], "same": outs["old"] == outs["new"], **res}

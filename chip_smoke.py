@@ -68,7 +68,17 @@ Phases, in order; any failure raises and the exit code is non-zero:
    new, direct) beside the plain version and the bound;
 10. enc times -- the segmented and the serial pack kernel on the main
    path's records in turns, and the plain version against the main path's
-   kernel output and the serial kernel's;
+   kernel output and the serial kernel's; then the encoder's host half,
+   the yardstick's (numpy staging and pageable copies, the lane features'
+   loop, each header built twice, the (lanes, maxH + rows + 2) word table)
+   against the new one (one pinned upload laid out on the card, lane
+   features counted on the card, the context-map clusterings over C++
+   threads, each distinct header built once in C++, the pack inputs in
+   one pinned copy, the compact assembly and pinned fetch) in turns at the
+   default, bench and v3 settings
+   (tools/enc_host_profile.profile_setting: first calls apart, then 5
+   runs split into parts and 5 whole runs of each, in turns; each part's
+   median and best), the streams byte-identical, no lane host-encoded;
 11. enc bench config -- the reference bench's encode setting at the same
    shape: one launch each of matches, parse, records and pack counted,
    the streams byte-identical to the plain stages' encode, every stream
@@ -99,10 +109,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
    one pinned buffer, one copy) and never by the yardstick's preflight,
    unpacked by collect_lanes_v3_pinned; host clock of the call's parts;
    then the old host half (the yardstick: the joined streams, the native
-   parse, numpy staging, pageable copies, the lane loop) against the new
-   one in turns (utils.profiling.profile_v3_decode: first calls apart,
-   best of 5, each part's host clock), outputs equal; the native staging
-   at width 1024 equal field for field to batch_to_torch_v3 of the
+   parse, numpy staging, pageable copies, the lane loop) once, its output
+   equal to the new one's (utils.profiling.profile_v3_decode: first calls
+   apart, the new half's best of 5, each part's host clock); the native
+   staging at width 1024 equal field for field to batch_to_torch_v3 of the
    yardstick's preflight; 100 of the streams (one table set: one group of
    128 lanes) bit-exact; the yardstick's preflight (best of 3) and the
    Python one (once), their V3Batches equal field for field;
@@ -126,8 +136,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
    direct kernel never; the call's host clock with the native header
    walk's, staging's and kernel's shares, against the host decoder's;
    each round's groups of 128 beside the Python preflight's binning of
-   the same units; the old host half against the new one (each stream's
-   output kept on the card between rounds) in turns, outputs equal; then
+   the same units; the old host half once, its output equal to the new
+   one's (each stream's output kept on the card between rounds; the new
+   one's best of 5); then
    each round's batch through both kernels, equal, timed in turns;
 17. caps -- the group-cap sweep at 12, 16, 24 and 32 groups: v2, the
    main-path streams G times, both v2 kernels (resolve in turns with its
@@ -142,7 +153,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
    input, no fallback, the groups, the call's host clock, peak device
    memory and kernel times (the v2 resolve in turns with its direct
    form), against the host decoder on the same streams; on the v3 paths
-   then the old host half against the new one in turns, outputs equal;
+   then the old host half once, its output equal to the new one's (the
+   new one's best of 5);
 18. probes -- run_probe_v2 at every level and run_probe_v2b at every
    variant of the TPU scripts, launches counted from 0; each kernel's
    outputs held against its plain version bit for bit; ns per row;
@@ -1136,6 +1148,33 @@ def phase_enc_bench(data: bytes, card_str: str) -> tuple[int, dict]:
     return err, launches
 
 
+def phase_enc_halves(card_str: str) -> dict:
+    """The encoder's old host half (the yardstick,
+    tools/enc_host_profile.old_half) against the new one
+    (encode_device_batch) in turns at the default, bench and v3 settings:
+    first calls apart, then 5 runs split into parts and 5 whole runs of
+    each; the streams byte-identical (profile_setting raises otherwise)
+    and no lane host-encoded."""
+    import brotli_tpu_torch
+    from brotli_tpu_torch.tools.enc_host_profile import (profile_setting,
+                                                         report)
+
+    out = {}
+    for setting in ("default", "bench", "v3"):
+        fb0 = brotli_tpu_torch.encode_fallback_stats()["lanes_fallback"]
+        rep = profile_setting(setting, rounds=5)
+        fell = brotli_tpu_torch.encode_fallback_stats()["lanes_fallback"] - fb0
+        check(fell == 0, f"[enc times] {setting}: {fell} lanes host-encoded")
+        check(set(rep["halves"]) == {"old", "new"},
+              f"[enc times] {setting}: halves {sorted(rep['halves'])}")
+        report(setting, rep, card_str, tag="enc times")
+        print(f"[enc times] {card_str}: {setting}: the old and the new "
+              f"half's streams byte-identical in every run, ratio "
+              f"{rep['ratio']:.6f}, 0 ovf lanes")
+        out[setting] = rep
+    return out
+
+
 # the parse's lazy / gate knob sets, and match-finder settings whose
 # matches it parses (default; the bench's chain depth; the v3 cell's
 # distance cap)
@@ -1666,18 +1705,17 @@ def tb_diff(a, b) -> list[str]:
 
 def print_halves(tag: str, rep: dict, card_str: str, what: str = "") -> None:
     """profile_v3_decode's report: each half's parts, first call and best
-    of the runs in turns."""
+    of the timed runs (the new half's alone: the old one runs once)."""
     total = rep["bytes"]
-    for name, half in (("old", "the yardstick's host half"),
-                       ("new", "the native staging, pinned unpack")):
-        for when, label in (("first", "first call"),
-                            ("best", "best of 5, in turns with the other")):
-            parts = rep[name][when]
-            print(f"[{tag}] {card_str}: {what}{name} ({half}), {label}: call "
-                  f"{parts['call'] * 1e3:.3f} ms ({total / parts['call'] / 1e6:.1f} "
-                  "MB/s); " + ", ".join(f"{k} {v * 1e3:.3f} ms"
-                                        for k, v in parts.items()
-                                        if k != "call"))
+    for name, when, label in (
+            ("old", "first", "the yardstick's host half, its one call"),
+            ("new", "first", "the native staging, pinned unpack, first call"),
+            ("new", "best", "the native staging, pinned unpack, best of 5")):
+        parts = rep[name][when]
+        print(f"[{tag}] {card_str}: {what}{name} ({label}): call "
+              f"{parts['call'] * 1e3:.3f} ms ({total / parts['call'] / 1e6:.1f} "
+              "MB/s); " + ", ".join(f"{k} {v * 1e3:.3f} ms"
+                                    for k, v in parts.items() if k != "call"))
     print(f"[{tag}] {card_str}: {what}old and new outputs equal and equal "
           f"to the input, {total} B, 0 fallback lanes (host clock, each part "
           "through a synchronise)")
@@ -1689,8 +1727,9 @@ def phase_v3_main(data: bytes, streams: list[bytes], card_str: str):
     kernel seen to read the staged dictionary tensor itself (no upload in
     the call), staged once by the native staging (stage3_native: one plan
     and fill, one copy) and never by the yardstick's preflight, unpacked by
-    collect_lanes_v3_pinned.  Then the old host half against the new one
-    in turns (utils.profiling.profile_v3_decode); the native staging at
+    collect_lanes_v3_pinned.  Then the old host half once, its output equal
+    to the new one's (utils.profiling.profile_v3_decode, the new one best
+    of 5); the native staging at
     width 1024 equal field for field to batch_to_torch_v3 of the
     yardstick's preflight; 100 of the streams (one table set, one group
     of 128 lanes) bit-exact; the yardstick's native preflight (best of 3)
@@ -1919,8 +1958,8 @@ def phase_v3_times(batch, staged, card_str: str) -> dict:
 
 def phase_v3_full(card_str: str) -> int:
     """decode_batch_v3_full on 1024 lanes of multi-metablock streams; the
-    old host half against the new one in turns; each round's batch
-    through both kernels."""
+    old host half once, its output equal to the new one's; each round's
+    batch through both kernels."""
     import brotli_tpu_torch
     from brotli_tpu_torch.ops import decode3 as D3
     from brotli_tpu_torch.ops import stage3_native as S3
@@ -2095,7 +2134,8 @@ def sparse_run(name: str, streams: list[bytes], want: list[bytes], decode,
     each staged round (`kernel_ms`); against the host decoder on the same
     streams, which is what the driver did at the reference's cap.  Output
     equal to the input, no fallback lane.  On the v3 paths, then the old
-    host half against the new one in turns (profile_v3_decode)."""
+    host half once, its output equal to the new one's (profile_v3_decode,
+    the new one best of 5)."""
     import brotli_tpu_torch
     from brotli_tpu_torch.utils.profiling import profile_v3_decode
 
@@ -2870,6 +2910,7 @@ def main() -> int:
                 enc_data, card_str)
     enc_times = walled("enc times", phase_enc_times, enc_seen, card_str)
     del enc_seen
+    walled("enc halves", phase_enc_halves, card_str)
     bench_err, bench_launches = walled("enc bench-config", phase_enc_bench,
                                        enc_data, card_str)
     del enc_data

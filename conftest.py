@@ -66,6 +66,7 @@ FILE_SECONDS = {
     "tests/test_torch_zopfli.py": 154.26,
     "tests/test_torch_resolve.py": 103.59,
     "tests/test_torch_parse.py": 83.23,
+    "tests/test_torch_encode_host_native.py": 69.48,
     "tests/test_font_and_dict.py": 67.02,
     "tests/test_torch_decode2.py": 53.04,
     "tests/test_torch_preflight3_native.py": 50.39,
