@@ -16,6 +16,9 @@ kernel that CPU tensors take):
                         csrc/decode3.cu
   ops/resolve.py        LZ resolve (brotli_tpu/ops/pallas_resolve.py),
                         kernel csrc/resolve.cu
+  ops/device_decode.py  per-lane-table decode of independently compressed
+                        streams (brotli_tpu/ops/device_decode.py), kernel
+                        csrc/device_decode.cu
   ops/preflight2_native.py
                         the v2 round trip's host preflight and staging in
                         C++ (native/preflight2.cpp, over threads): the
@@ -37,7 +40,10 @@ The round trip on a card is
 device="cuda")`, which gives back the chunks of `data`; streams made with
 `lit_ctx_trees > 1` or `block_types > 1` (context maps, block switching)
 decode through `decode_batch_v3(streams, device="cuda")`, and streams of
-several metablocks through `decode_batch_v3_full`.  Over several device
+several metablocks through `decode_batch_v3_full`.  Streams compressed
+independently, each with tables of its own, decode through
+`decode_batch_device(streams)`, and over device slots through
+`sharded_decode_batch(streams, mesh)`.  Over several device
 slots: `encode_batches_multichip(data, get_mesh(4, logical=True))` and
 `decode_batches_multichip(streams, mesh)` (one card runs the four slots as
 four CUDA streams).  `zopfli_commands_device(data)` gives the host q10
@@ -74,20 +80,30 @@ from .ops.decode2 import (decode_batch_device_e2e, decode_batch_pallas2,
                           fallback_stats)
 from .ops.decode3 import (decode_batch_v3, decode_batch_v3_full,
                           stage_dictionary)
+from .ops.device_decode import decode_batch_device
 from .ops.device_encode import encode_device_batch, encode_fallback_stats
 from .ops.device_zopfli import zopfli_commands_device
 from .parallel import (broadcast_dictionary, broadcast_dictionary_chunks,
                        decode_batch_v3_multichip, decode_batches_multichip,
                        decode_multihost, encode_batches_multichip,
                        encode_multihost, get_local_mesh, get_mesh,
-                       init_multihost, parallel_encode)
+                       init_multihost, parallel_encode, sharded_decode_batch)
+
+
+def encode_sharded_device(data, **kw):
+    """The device encoder under the JAX package's other name for it:
+    encode_device_batch(data, **kw)."""
+    return encode_device_batch(data, **kw)
+
 
 __all__ = ["BrotliError", "Encoder", "broadcast_dictionary",
-           "broadcast_dictionary_chunks", "decode_batch_device_e2e",
+           "broadcast_dictionary_chunks", "decode_batch_device",
+           "decode_batch_device_e2e",
            "decode_batch_pallas2", "decode_batch_v3", "decode_batch_v3_full",
            "decode_batch_v3_multichip", "decode_batches_multichip",
            "decode_multihost", "encode_batches_multichip",
            "encode_device_batch", "encode_fallback_stats", "encode_multihost",
-           "encode_sharded", "fallback_stats", "get_local_mesh", "get_mesh",
-           "host_decode", "host_encode", "init_multihost", "parallel_encode",
+           "encode_sharded", "encode_sharded_device", "fallback_stats",
+           "get_local_mesh", "get_mesh", "host_decode", "host_encode",
+           "init_multihost", "parallel_encode", "sharded_decode_batch",
            "stage_dictionary", "zopfli_commands_device"]

@@ -42,7 +42,7 @@ NVCC_FLAGS = [
 NVCC_LINK_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-shared"]
 KERNEL_SOURCES = ["decode2.cu", "decode3.cu", "resolve.cu", "pack.cu",
                   "parse.cu", "probe.cu", "zopfli.cu", "matches.cu",
-                  "records.cu"]
+                  "records.cu", "device_decode.cu"]
 # flags of one source only: the Zopfli DP's float64 costs are sums in the
 # host's order, and no multiply-add may contract one
 SOURCE_FLAGS = {"zopfli.cu": ["-fmad=false"]}
@@ -72,6 +72,7 @@ _RECORDS_ARGS = [_P] * 11 + [_I] * 4
 _ZOPFLI_DIRECT_ARGS = [_P] * 19 + [_I] * 5
 _ZOPFLI_ARGS = [_P] * 20 + [_I] * 6                   # + records; blocks,
                                                       # window
+_DEVICE_DECODE_ARGS = [_P] * 7 + [_I] * 3
 _PROBE_V2_ARGS = [_P] * 3 + [_I] * 3
 _PROBE_V2B_ARGS = [_P] * 4 + [_I] * 8
 
@@ -178,6 +179,7 @@ def kernels_lib() -> ctypes.CDLL:
             "brotli_torch_records_config": [_I, _P],
             "brotli_torch_zopfli": _ZOPFLI_ARGS + [_P],
             "brotli_torch_zopfli_direct": _ZOPFLI_DIRECT_ARGS + [_P],
+            "brotli_torch_device_decode": _DEVICE_DECODE_ARGS + [_I, _P],
             "brotli_torch_probe_v2": _PROBE_V2_ARGS + [_P],
             "brotli_torch_probe_v2b": _PROBE_V2B_ARGS + [_P],
         })
@@ -211,6 +213,7 @@ def host_lib() -> ctypes.CDLL:
             "brotli_torch_zopfli_direct_host": _ZOPFLI_DIRECT_ARGS,
             "brotli_torch_zopfli_min_len_host": [_P, _I, _I,
                                                  ctypes.c_double],
+            "brotli_torch_device_decode_host": _DEVICE_DECODE_ARGS,
             "brotli_torch_probe_v2_host": _PROBE_V2_ARGS,
             "brotli_torch_probe_v2b_host": _PROBE_V2B_ARGS,
         })

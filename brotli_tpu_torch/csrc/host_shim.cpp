@@ -1,17 +1,18 @@
 // Host build of the kernels' per-lane logic (decode2.cuh, decode3.cuh,
 // queue.cuh, resolve.cuh, pack.cuh, parse.cuh, probe.cuh, zopfli.cuh,
-// matches.cuh, records.cuh), compiled with
+// matches.cuh, records.cuh, device_decode.cuh), compiled with
 // g++ so the CPU tests can hold the exact code the CUDA kernels run against
 // the plain PyTorch versions.  Test-only: the encode and decode paths never call it.
 // The argument layouts are those of the CUDA entry points in decode2.cu,
-// decode3.cu, resolve.cu, pack.cu, parse.cu, probe.cu, zopfli.cu, matches.cu
-// and records.cu, without the stream.
+// decode3.cu, resolve.cu, pack.cu, parse.cu, probe.cu, zopfli.cu, matches.cu,
+// records.cu and device_decode.cu, without the stream (and the SM count).
 #include <algorithm>
 #include <cstdint>
 #include <vector>
 
 #include "decode2.cuh"
 #include "decode3.cuh"
+#include "device_decode.cuh"
 #include "matches.cuh"
 #include "pack.cuh"
 #include "parse.cuh"
@@ -230,6 +231,28 @@ extern "C" int brotli_torch_resolve_host(const void* tok, const void* count,
                             (u8*)out + (i64)lane * out_stride, out_stride,
                             w, win - 1, tq};
     ((i32*)err)[lane] = resolve_lane_warp(L);
+  }
+  return 0;
+}
+
+// The kernel of device_decode.cu, lane by lane, each copy's 32 threads as
+// a loop; each lane reads its table row where it lies.
+extern "C" int brotli_torch_device_decode_host(const void* body,
+                                               const void* scal,
+                                               const void* tabs,
+                                               const void* consts, void* out,
+                                               void* pos, void* err,
+                                               int n_lanes, int max_words,
+                                               int out_size) {
+  if (n_lanes <= 0 || max_words < 0 || out_size < 0) return 1;
+  for (int lane = 0; lane < n_lanes; ++lane) {
+    const DDResult r = dd_decode_lane(
+        dd_lane((const u32*)body, (const i32*)scal + (i64)lane * DD_SCAL_N,
+                (const i32*)tabs + (i64)lane * DD_TAB_N, (const i32*)consts,
+                (u8*)out + (i64)lane * out_size, max_words, out_size),
+        0);
+    ((i32*)pos)[lane] = r.pos;
+    ((u8*)err)[lane] = r.err ? 1 : 0;
   }
   return 0;
 }

@@ -24,6 +24,7 @@ only, since it runs inside that slot's block.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 from dataclasses import dataclass
 
 import numpy as np
@@ -184,6 +185,57 @@ def decode_batches_multichip(streams: list[bytes],
                 results[gi * gs: gi * gs + len(groups[gi])] = \
                     D.collect_lanes_pinned(staged, groups[gi], resolved, err,
                                            phase, widx)
+    return results  # type: ignore[return-value]
+
+
+def _pad_batch(batch, multiple: int) -> list:
+    """Pad a preflight batch to a multiple of `multiple` lanes with copies
+    of its first lane at mlen 0, which leave the decode loop at once."""
+    pad = (-len(batch)) % multiple
+    return list(batch) + [dataclasses.replace(batch[0], mlen=0)] * pad
+
+
+def sharded_decode_batch(streams: list[bytes],
+                         mesh: list[Slot] | None = None) -> list[bytes]:
+    """Decode independently compressed streams over the mesh's slots.
+
+    The device-eligible streams (ops/device_decode.preflight_split) are padded
+    to a multiple of the slot count with mlen-0 lanes and cut into one
+    contiguous shard a slot, each staged on its slot's device at the whole
+    batch's output size and word count (the JAX package's global arrays),
+    so every lane's outputs equal a one-device run of the whole batch.
+    Every shard's kernel (ops/device_decode.device_decode) is queued on
+    its slot's stream before the host fetches any; the outputs come back
+    in shard order.  Ineligible streams and flagged lanes are decoded on
+    the host and counted in ops/decode2.fallback_stats()."""
+    from ..ops import device_decode as DD
+    from ..ops.decode2 import _note_fallbacks
+
+    if mesh is None:
+        mesh = get_mesh()
+    batch, lanes, results = DD.preflight_split(streams)
+    n_fallback = len(streams) - len(lanes)
+    if lanes:
+        batch = _pad_batch(batch, len(mesh))
+        per = len(batch) // len(mesh)
+        out_size = max(p.mlen for p in batch)
+        max_words = max(p.words.shape[0] for p in batch)
+        with _dispatch(mesh):
+            queued = []
+            for k, slot in enumerate(mesh):
+                with slot.active():
+                    db = DD.stage_batch(batch[k * per: (k + 1) * per],
+                                        slot.device, out_size=out_size,
+                                        max_words=max_words)
+                    queued.append((slot, DD.device_decode(db)))
+            parts = []
+            for slot, outs in queued:
+                with slot.active():
+                    parts.append(DD.fetch_outputs(*outs))
+        out, pos, err = (np.concatenate(x) for x in zip(*parts))
+        n_fallback += DD.collect_results(results, streams, lanes, out, pos,
+                                         err)
+    _note_fallbacks(len(streams), n_fallback)
     return results  # type: ignore[return-value]
 
 

@@ -202,7 +202,19 @@ Phases, in order; any failure raises and the exit code is non-zero:
    8 KB from distinct corpus offsets (each lane's backtrack == the
    host's) and on the runs input, each with its launch shape (blocks,
    window, shared memory); the host parse's times on the same inputs
-   (host clock, the 64 KB three times).
+   (host clock, the 64 KB three times);
+27. device decode (run after phase 17) -- 1024 x 8 KB pieces of the
+   corpus, each compressed alone by host_encode at quality 1 + i % 4 (its
+   own tables; over 8 spawned processes, the wall printed):
+   decode_batch_device(device="cuda") == the pieces with one
+   device_decode_kernel launch counted from 0, its fallback lanes exactly the lanes the kernel flags and all
+   of quality 4 (static-dictionary references, which the round-1 decode
+   leaves to the host), the quality 1-3 streams alone with 0 fallback
+   lanes; the kernel == device_decode_ref on the same CUDA tensors (out,
+   pos, err), timed beside its bound and the plain version, the host
+   half split (preflight, staging, kernel, unpack); decode_batch_v3 on
+   the same batch (its lanes host-decoded); sharded_decode_batch over 4
+   logical slots == the pieces, one launch a slot.
 
 Each of phases 20-24 sets the launch counters to 0 just before it and
 reads them just after; the kernel line gives them as `multi_launches`.
@@ -500,7 +512,8 @@ def phase_build(tag: str) -> None:
                                   "resolve_direct_kernel", "resolve_kernel",
                                   "zopfli_direct_kernel", "zopfli_kernel",
                                   "match_direct_kernel", "match_kernel",
-                                  "records_direct_kernel", "records_kernel")
+                                  "records_direct_kernel", "records_kernel",
+                                  "device_decode_kernel")
                       if k in name), None)
         if short:
             print(f"[build] {short}: {'; '.join(lines)}")
@@ -2247,6 +2260,167 @@ def phase_caps_sparse(data: bytes, card_str: str) -> None:
                full=True)
 
 
+DD_LANES = 1024   # [device decode]: independently compressed streams
+DD_PIECE = 8192   # bytes a stream
+
+
+def dd_encode(job: tuple[bytes, int]) -> bytes:
+    """One piece compressed alone by the port's host encoder (each stream
+    its own tables); a worker process's task."""
+    from brotli_tpu_torch import host_encode
+
+    piece, quality = job
+    return host_encode(piece, quality=quality)
+
+
+def dd_streams(card_str: str) -> tuple[list[bytes], list[bytes], list[int]]:
+    """corpus(DD_LANES * DD_PIECE) in DD_PIECE pieces, piece i compressed
+    alone at quality 1 + i % 4 on a pool of spawned processes (none
+    touches the card): the pieces, their streams and qualities."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    data = corpus(DD_LANES * DD_PIECE)
+    pieces = [data[i * DD_PIECE: (i + 1) * DD_PIECE] for i in range(DD_LANES)]
+    qual = [1 + i % 4 for i in range(DD_LANES)]
+    workers = min(8, os.cpu_count() or 1)
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context(
+            "spawn")) as pool:
+        streams = list(pool.map(dd_encode, zip(pieces, qual), chunksize=16))
+    print(f"[device decode] {card_str}: {DD_LANES} x {DD_PIECE} B pieces "
+          f"encoded alone by host_encode at quality 1-4 over {workers} "
+          f"processes: {time.perf_counter() - t0:.3f} s (host clock); "
+          f"{sum(map(len, streams))} B of streams")
+    return pieces, streams, qual
+
+
+def dd_bound(db, pre) -> tuple[float, str]:
+    """Bytes the per-lane-table decode must move, each once: the words;
+    of each lane's table row only what its code can address (the 256 root
+    entries and the second-level entries of each Huffman table, which are
+    never 0 where padding is, and 16 + ndirect + (48 << npostfix)
+    distance extras and offsets); the scalars it reads; the LUT's 64
+    entries; out, pos and err written."""
+    from brotli_tpu_torch.ops import device_decode as DD
+
+    tabs = db.tabs.cpu().numpy()
+    n_tab = 0
+    for at, size in ((DD.LIT_AT, DD.LIT_TABLE_SIZE),
+                     (DD.CMD_AT, DD.CMD_TABLE_SIZE),
+                     (DD.DIST_AT, DD.DIST_TABLE_SIZE)):
+        n_tab += 256 * db.n_lanes + int(np.count_nonzero(
+            tabs[:, at + 256: at + size]))
+    n_tab += sum(2 * (16 + p.ndirect + (48 << p.npostfix)) for p in pre)
+    n_in = 4 * (db.body.numel() + n_tab + 6 * db.n_lanes + 64)
+    return bound_ms(n_in + db.n_lanes * (db.out_size + 4 + 1))
+
+
+def phase_device_decode(card_str: str) -> dict:
+    """The per-lane-table decode on 1024 independently compressed 8 KB
+    streams: decode_batch_device (the main path, launches counted from 0),
+    the kernel == device_decode_ref on the same CUDA tensors, its time
+    against the bound, the host half split, decode_batch_v3 on the same
+    batch, and sharded_decode_batch over 4 logical slots."""
+    import brotli_tpu_torch
+    from brotli_tpu_torch.ops import device_decode as DD
+    from brotli_tpu_torch.ops.preflight2 import preflight_many
+
+    pieces, streams, qual = dd_streams(card_str)
+    q4 = np.array(qual) == 4
+    # the main path: the user's entry point, launches counted from 0
+    zero_launches()
+    out, fell, _ = fallback_deltas(lambda: brotli_tpu_torch.decode_batch_device(
+        streams, device="cuda"))
+    torch.cuda.synchronize()
+    launches = DD.KERNEL_LAUNCHES
+    check(launches == 1, f"decode_batch_device: {launches} kernel launches")
+    check(out == pieces, "decode_batch_device: output differs from the input")
+
+    pre = preflight_many(streams)
+    check(all(p is not None for p in pre), "preflight refused a stream")
+    db = DD.stage_batch(pre, "cuda")
+    got = DD.device_decode(db)
+    # the plain version once (its steps replay as CUDA graphs; the capture
+    # is inside the interval)
+    ref = []
+    plain = plain_ms(lambda: ref.append(DD.device_decode_ref(db)))
+    ref = ref[0]
+    err = max_abs_err(got, ref)
+    check(err == 0, f"device_decode kernel != device_decode_ref ({err})")
+    flagged = got[2].cpu().numpy()
+    pos = got[1].cpu().numpy()
+    mlens = np.array([p.mlen for p in pre])
+    # round 1 leaves static-dictionary references to the host: the
+    # quality-4 streams have them, the others none
+    check(fell == int(flagged.sum()) and not flagged[~q4].any()
+          and (pos[~flagged] == mlens[~flagged]).all(),
+          f"decode_batch_device: {fell} fallback lanes, {int(flagged.sum())} "
+          f"flagged ({int(flagged[~q4].sum())} below quality 4)")
+    print(f"[device decode] {card_str}: decode_batch_device == the pieces, "
+          f"{launches} launch of device_decode_kernel (counted from 0); "
+          f"{fell} fallback lanes, each a lane the kernel flags: "
+          f"{int(flagged[q4].sum())} of the {int(q4.sum())} quality-4 lanes "
+          "(static-dictionary references, left to the host as in the JAX "
+          f"kernel), 0 of the {int((~q4).sum())} others; kernel == "
+          "device_decode_ref on the same CUDA tensors (out, pos, err)")
+    lower = [s for s, q in zip(streams, qual) if q < 4]
+    got_low, fell_low, _ = fallback_deltas(
+        lambda: brotli_tpu_torch.decode_batch_device(lower, device="cuda"))
+    check(got_low == [p for p, q in zip(pieces, qual) if q < 4]
+          and fell_low == 0, f"quality 1-3 lanes: {fell_low} fallback lanes")
+    print(f"[device decode] {card_str}: the {len(lower)} quality 1-3 streams "
+          "through decode_batch_device: equal to their pieces, 0 fallback "
+          "lanes")
+
+    ms = device_ms(lambda: DD.device_decode(db))
+    bound = dd_bound(db, pre)
+    # the host half, each part through a synchronise (best of 3)
+    parts = {"preflight": lambda: preflight_many(streams),
+             "staging": lambda: DD.stage_batch(pre, "cuda"),
+             "kernel": lambda: DD.device_decode(db),
+             "unpack": lambda: DD.collect_results(
+                 [None] * len(streams), streams, list(range(len(streams))),
+                 *DD.fetch_outputs(*got))}
+    split = {k: min(wall_s(f) for _ in range(3)) * 1e3
+             for k, f in parts.items()}
+    whole = min(wall_s(lambda: brotli_tpu_torch.decode_batch_device(
+        streams, device="cuda")) for _ in range(3)) * 1e3
+    print(f"[device decode] {card_str}: device_decode_kernel {ms:.4f} ms "
+          f"(time_device_fn) at {DD_LANES} x {DD_PIECE} B, bound "
+          f"{bound[0]:.4f} ms ({bound[1]}), {bound[0] / ms:.4%} of it; plain "
+          f"version {plain:.1f} ms (CUDA events, once); host half (best of 3, host clock "
+          f"through a synchronise): "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items())
+          + f"; whole decode_batch_device {whole:.3f} ms")
+
+    t0 = time.perf_counter()
+    v3, v3_fell, _ = fallback_deltas(lambda: brotli_tpu_torch.decode_batch_v3(
+        streams, device="cuda"))
+    v3_s = time.perf_counter() - t0
+    check(v3 == pieces, "decode_batch_v3: output differs from the input")
+    print(f"[device decode] {card_str}: decode_batch_v3 on the same batch: "
+          f"{v3_s:.3f} s (host clock), {v3_fell} of {DD_LANES} lanes "
+          "host-decoded")
+
+    mesh = brotli_tpu_torch.get_mesh(SLOTS, "cuda", logical=True)
+    DD.KERNEL_LAUNCHES = 0
+    t0 = time.perf_counter()
+    sharded, sh_fell, _ = fallback_deltas(
+        lambda: brotli_tpu_torch.sharded_decode_batch(streams, mesh))
+    sh_s = time.perf_counter() - t0
+    sh_launches = DD.KERNEL_LAUNCHES
+    check(sharded == pieces and sh_launches == SLOTS and sh_fell == fell,
+          f"sharded_decode_batch: {sh_launches} launches, {sh_fell} "
+          "fallback lanes, or output differs")
+    print(f"[device decode] {card_str}: sharded_decode_batch over {SLOTS} "
+          f"logical slots == the pieces, {sh_launches} launches (counted from "
+          f"0), {sh_fell} fallback lanes, {sh_s:.3f} s (host clock)")
+    return {"launches": launches, "err": err, "ms": ms, "plain_ms": plain,
+            "bound": bound, "host_ms": split, "whole_ms": whole,
+            "sharded_launches": sh_launches, "fallback_lanes": fell}
+
+
 # ---------------------------------------------------------------------------
 # the scale-out layer: N device slots, each a CUDA stream on this card
 # ---------------------------------------------------------------------------
@@ -2258,6 +2432,7 @@ def launches_now() -> dict:
     """The main-path kernels' launch counters."""
     from brotli_tpu_torch.ops import decode2 as D
     from brotli_tpu_torch.ops import decode3 as D3
+    from brotli_tpu_torch.ops import device_decode as DD
     from brotli_tpu_torch.ops import device_encode as E
     from brotli_tpu_torch.ops import device_zopfli as Z
     from brotli_tpu_torch.ops import resolve as R
@@ -2265,13 +2440,15 @@ def launches_now() -> dict:
     return {"entropy": D.KERNEL_LAUNCHES, "resolve": R.KERNEL_LAUNCHES,
             "matches": E.MATCH_LAUNCHES, "parse": E.PARSE_LAUNCHES,
             "records": E.RECORD_LAUNCHES, "pack": E.KERNEL_LAUNCHES,
-            "decode3": D3.KERNEL_LAUNCHES, "zopfli": Z.KERNEL_LAUNCHES}
+            "decode3": D3.KERNEL_LAUNCHES, "zopfli": Z.KERNEL_LAUNCHES,
+            "device_decode": DD.KERNEL_LAUNCHES}
 
 
 def zero_launches() -> None:
     """Every launch counter of the kernels to 0, the direct forms' too."""
     from brotli_tpu_torch.ops import decode2 as D
     from brotli_tpu_torch.ops import decode3 as D3
+    from brotli_tpu_torch.ops import device_decode as DD
     from brotli_tpu_torch.ops import device_encode as E
     from brotli_tpu_torch.ops import device_zopfli as Z
     from brotli_tpu_torch.ops import resolve as R
@@ -2284,7 +2461,8 @@ def zero_launches() -> None:
                             "RECORD_LAUNCHES", "MATCH_DIRECT_LAUNCHES",
                             "RECORD_DIRECT_LAUNCHES",
                             "PARSE_DIRECT_LAUNCHES")),
-                       (Z, ("KERNEL_LAUNCHES", "DIRECT_LAUNCHES"))):
+                       (Z, ("KERNEL_LAUNCHES", "DIRECT_LAUNCHES")),
+                       (DD, ("KERNEL_LAUNCHES",))):
         for name in names:
             setattr(mod, name, 0)
 
@@ -2934,6 +3112,7 @@ def main() -> int:
            card_str)
     del v3_rows
     walled("caps sparse", phase_caps_sparse, data, card_str)
+    dd = walled("device decode", phase_device_decode, card_str)
     # the scale-out layer: each phase counts its launches from 0
     multi = {
         "multi v2": walled("multi v2", phase_multi_v2, data, streams,
@@ -2952,7 +3131,8 @@ def main() -> int:
                "greedy_parse": "parse", "pack_records": "pack",
                "decode3": "decode3", "zopfli_dp": "zopfli",
                "find_matches": "matches",
-               "build_records": "records"}.get(name)
+               "build_records": "records",
+               "device_decode": "device_decode"}.get(name)
         return {"name": name, "route": "cuda",
                 "source": f"brotli_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": n, "max_abs_err": err,
@@ -3047,6 +3227,14 @@ def main() -> int:
          "direct_ms_runs": zopfli["direct_ms_runs"],
          "host_ms": zopfli["host_s"] * 1e3,
          "host_ms_32x8k": zopfli["host32_s"] * 1e3},
+        # at 1024 x 8 KB independently compressed streams; host_ms: the
+        # host half's parts; sharded_launches: [device decode]'s 4 slots
+        {**row("device_decode", "device_decode.cu",
+               "brotli_tpu/ops/device_decode.py:204", dd["launches"],
+               dd["err"], dd["ms"], dd["plain_ms"], dd["bound"]),
+         "host_ms": dd["host_ms"], "whole_ms": dd["whole_ms"],
+         "fallback_lanes": dd["fallback_lanes"],
+         "sharded_launches": dd["sharded_launches"]},
     ]
     print(f"[wall] whole run {time.perf_counter() - t_run:.3f} s (host clock, "
           "builds included)")

@@ -51,44 +51,45 @@ _cap_worker_threads()
 
 # Seconds of each file's tests (setup, call and teardown summed), from the
 # junit XML of one tier-1 run with this module in place (ROADMAP's command:
-# 6 workers on an 8-core CPU host); 4,199.93 s in all. A file that runs
+# 6 workers on an 8-core CPU host); 3,497.80 s in all. A file that runs
 # after another file on its worker has compiled the same JAX shapes takes
 # less. The 0.00 rows ran no test: their collection failed there, for want
 # of the reference's fixture files.
 FILE_SECONDS = {
-    "tests/test_torch_decode3_e2e.py": 762.92,
-    "tests/test_torch_parallel.py": 660.39,
-    "tests/test_torch_decode3_cases.py": 528.36,
-    "tests/test_torch_encode_e2e.py": 510.97,
-    "tests/test_torch_decode3.py": 423.10,
-    "tests/test_torch_encode_stages.py": 349.82,
-    "tests/test_torch_pack.py": 210.37,
-    "tests/test_torch_zopfli.py": 154.26,
-    "tests/test_torch_resolve.py": 103.59,
-    "tests/test_torch_parse.py": 83.23,
-    "tests/test_torch_encode_host_native.py": 69.48,
-    "tests/test_font_and_dict.py": 67.02,
-    "tests/test_torch_decode2.py": 53.04,
-    "tests/test_torch_preflight3_native.py": 50.39,
-    "tests/test_torch_e2e.py": 46.20,
-    "tests/test_torch_host_copy.py": 36.68,
-    "tests/test_native_tables.py": 34.43,
-    "tests/test_torch_stage3_native.py": 34.30,
-    "tests/test_torch_multihost.py": 34.16,
-    "tests/test_pallas_decode3.py": 33.02,
-    "tests/test_torch_schedule.py": 23.42,
-    "tests/test_torch_probe.py": 22.34,
-    "tests/test_torch_preflight2_native.py": 14.82,
-    "tests/test_torch_zopfli_step.py": 7.76,
-    "tests/test_torch_encode_kernels.py": 2.04,
-    "tests/test_torch_encode_split.py": 1.64,
-    "tests/test_utils.py": 0.68,
-    "tests/test_torch_group_caps.py": 0.04,
-    "tests/test_encoder_parity.py": 0.03,
+    "tests/test_torch_decode3_e2e.py": 621.16,
+    "tests/test_torch_parallel.py": 539.73,
+    "tests/test_torch_decode3_cases.py": 427.67,
+    "tests/test_torch_encode_e2e.py": 396.60,
+    "tests/test_torch_decode3.py": 345.58,
+    "tests/test_torch_encode_stages.py": 304.53,
+    "tests/test_torch_pack.py": 141.71,
+    "tests/test_torch_zopfli.py": 98.31,
+    "tests/test_torch_resolve.py": 96.04,
+    "tests/test_torch_parse.py": 75.87,
+    "tests/test_torch_device_decode.py": 66.05,
+    "tests/test_font_and_dict.py": 65.60,
+    "tests/test_torch_decode2.py": 46.86,
+    "tests/test_torch_e2e.py": 38.36,
+    "tests/test_native_tables.py": 34.76,
+    "tests/test_pallas_decode3.py": 29.01,
+    "tests/test_torch_preflight3_native.py": 28.71,
+    "tests/test_torch_encode_host_native.py": 28.67,
+    "tests/test_torch_multihost.py": 24.04,
+    "tests/test_torch_host_copy.py": 20.39,
+    "tests/test_torch_stage3_native.py": 19.76,
+    "tests/test_torch_preflight2_native.py": 13.20,
+    "tests/test_torch_probe.py": 12.60,
+    "tests/test_torch_schedule.py": 12.03,
+    "tests/test_torch_zopfli_step.py": 6.65,
+    "tests/test_torch_encode_split.py": 2.07,
+    "tests/test_torch_encode_kernels.py": 1.32,
+    "tests/test_utils.py": 0.39,
+    "tests/test_torch_group_caps.py": 0.06,
+    "tests/test_encoder_parity.py": 0.02,
     "tests/test_device_zopfli.py": 0.02,
-    "tests/test_huffman.py": 0.01,
+    "tests/test_huffman.py": 0.02,
     "tests/test_interpret_gate.py": 0.01,
-    "tests/test_torch_parallel_card.py": 0.00,
+    "tests/test_torch_device_decode_card.py": 0.00,
     "tests/test_decode_vectors.py": 0.00,
     "tests/test_determinism.py": 0.00,
     "tests/test_device_decode.py": 0.00,
@@ -97,6 +98,7 @@ FILE_SECONDS = {
     "tests/test_pallas_resolve.py": 0.00,
     "tests/test_parallel.py": 0.00,
     "tests/test_roundtrip.py": 0.00,
+    "tests/test_torch_parallel_card.py": 0.00,
 }
 
 
