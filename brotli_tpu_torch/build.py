@@ -113,7 +113,7 @@ def _build(name: str, compiler: list[str], link: list[str],
     # build at once, and a rename never exposes a half-written library
     pid = os.getpid()
     tmp = BUILD_DIR / f".lib{name}.{pid}.so"
-    objs = [BUILD_DIR / f".{src.stem}.{pid}.o" for src in sources]
+    objs = [BUILD_DIR / f".{name}.{src.stem}.{pid}.o" for src in sources]
     cmds = [[*compiler, *SOURCE_FLAGS.get(src.name, []), "-c", "-o", str(o),
              str(src)] for o, src in zip(objs, sources)]
     cmds.append([*link, "-o", str(tmp), *map(str, objs)])
@@ -180,6 +180,9 @@ def kernels_lib() -> ctypes.CDLL:
             "brotli_torch_zopfli": _ZOPFLI_ARGS + [_P],
             "brotli_torch_zopfli_direct": _ZOPFLI_DIRECT_ARGS + [_P],
             "brotli_torch_device_decode": _DEVICE_DECODE_ARGS + [_I, _P],
+            "brotli_torch_device_decode_direct": _DEVICE_DECODE_ARGS
+            + [_I, _P],
+            "brotli_torch_device_decode_config": [_P],
             "brotli_torch_probe_v2": _PROBE_V2_ARGS + [_P],
             "brotli_torch_probe_v2b": _PROBE_V2B_ARGS + [_P],
         })
@@ -213,7 +216,9 @@ def host_lib() -> ctypes.CDLL:
             "brotli_torch_zopfli_direct_host": _ZOPFLI_DIRECT_ARGS,
             "brotli_torch_zopfli_min_len_host": [_P, _I, _I,
                                                  ctypes.c_double],
-            "brotli_torch_device_decode_host": _DEVICE_DECODE_ARGS,
+            # + words ring, window bytes
+            "brotli_torch_device_decode_host": _DEVICE_DECODE_ARGS + [_I, _I],
+            "brotli_torch_device_decode_direct_host": _DEVICE_DECODE_ARGS,
             "brotli_torch_probe_v2_host": _PROBE_V2_ARGS,
             "brotli_torch_probe_v2b_host": _PROBE_V2B_ARGS,
         })

@@ -235,22 +235,50 @@ extern "C" int brotli_torch_resolve_host(const void* tok, const void* count,
   return 0;
 }
 
-// The kernel of device_decode.cu, lane by lane, each copy's 32 threads as
-// a loop; each lane reads its table row where it lies.
-extern "C" int brotli_torch_device_decode_host(const void* body,
-                                               const void* scal,
-                                               const void* tabs,
-                                               const void* consts, void* out,
-                                               void* pos, void* err,
-                                               int n_lanes, int max_words,
-                                               int out_size) {
+// device_decode.cu's direct kernel, lane by lane, each copy's 32 threads
+// as a loop; each lane reads its table row where it lies.
+extern "C" int brotli_torch_device_decode_direct_host(
+    const void* body, const void* scal, const void* tabs, const void* consts,
+    void* out, void* pos, void* err, int n_lanes, int max_words,
+    int out_size) {
   if (n_lanes <= 0 || max_words < 0 || out_size < 0) return 1;
+  DDClock clk;
   for (int lane = 0; lane < n_lanes; ++lane) {
     const DDResult r = dd_decode_lane(
         dd_lane((const u32*)body, (const i32*)scal + (i64)lane * DD_SCAL_N,
                 (const i32*)tabs + (i64)lane * DD_TAB_N, (const i32*)consts,
                 (u8*)out + (i64)lane * out_size, max_words, out_size),
-        0);
+        0, clk);
+    ((i32*)pos)[lane] = r.pos;
+    ((u8*)err)[lane] = r.err ? 1 : 0;
+  }
+  return 0;
+}
+
+// device_decode.cu's shared-memory kernel, lane by lane, with a words ring
+// of `ring_words` and a window of `win` bytes (powers of two, at least
+// DD_RING_MIN and DD_WIN_MIN; the card's are DD_RING and DD_WIN).  The
+// slice is poisoned before each lane, so a byte or word read before the
+// lane wrote it shows in the outputs.
+extern "C" int brotli_torch_device_decode_host(
+    const void* body, const void* scal, const void* tabs, const void* consts,
+    void* out, void* pos, void* err, int n_lanes, int max_words, int out_size,
+    int ring_words, int win) {
+  if (n_lanes <= 0 || max_words < 0 || out_size < 0 ||
+      ring_words < DD_RING_MIN || win < DD_WIN_MIN ||
+      (ring_words & (ring_words - 1)) || (win & (win - 1)))
+    return 1;
+  const int bytes = dd_slice_bytes(ring_words, win);
+  std::vector<uint64_t> store((bytes + 7) / 8 + 2);
+  u8* slice = (u8*)(((uintptr_t)store.data() + 15) & ~(uintptr_t)15);
+  DDClock clk;
+  for (int lane = 0; lane < n_lanes; ++lane) {
+    std::fill(slice, slice + bytes, (u8)0xA5);
+    const DDResult r = dd_decode_lane_shared(
+        (const u32*)body, (const i32*)scal + (i64)lane * DD_SCAL_N,
+        (const i32*)tabs + (i64)lane * DD_TAB_N, (const i32*)consts,
+        (u8*)out + (i64)lane * out_size, max_words, out_size, slice,
+        ring_words - 1, win - 1, clk);
     ((i32*)pos)[lane] = r.pos;
     ((u8*)err)[lane] = r.err ? 1 : 0;
   }

@@ -11,20 +11,23 @@ metablock (the last) with one block type and one tree in each category
 (a static-dictionary reference, a distance or copy out of range) are
 decoded on the host and counted in ops/decode2.fallback_stats().
 
-The host half preflights with ops/preflight2.preflight_many (one native
-parse for the batch) and stages the batch into one buffer, pinned for a
-CUDA device, that goes to the card in one copy (`stage_batch`): each
+The host half preflights with one native parse of the batch
+(`preflight_native`: native.preflight_batch_native; a library that fails
+to build or load raises) and stages the batch into one buffer, pinned for
+a CUDA device, that goes to the card in one copy (`stage_batch`): each
 lane's u32 words one lane after another, a row of scalars a lane (where
 its words start, how many, its first bit, mlen, max_backward, npostfix),
 a row of tables a lane (csrc/device_decode.cuh's layout: literal,
 command, distance tables, then the distance codes' extra bits and
 offsets, 3718 int32) and the length LUT.  `device_decode` launches
-csrc/device_decode.cu `device_decode_kernel` (a warp a lane, its table
-row in shared memory) on CUDA tensors and takes `device_decode_ref`, the
-plain PyTorch version, on CPU tensors.  The outputs, as the JAX kernel's:
-out (B, out_size) uint8 with out_size the batch's largest mlen, pos (B,)
-int32, err (B,) bool; `fetch_outputs` brings them to the host through
-pinned buffers.
+csrc/device_decode.cu `device_decode_kernel` (a warp a lane: its tables
+compacted, its words and its output window in shared memory) on CUDA
+tensors and takes `device_decode_ref`, the plain PyTorch version, on CPU
+tensors; `device_decode_direct` launches the first design,
+`device_decode_direct_kernel`, kept to be timed against.  The outputs, as
+the JAX kernel's: out (B, out_size) uint8 with out_size the batch's
+largest mlen, pos (B,) int32, err (B,) bool; `fetch_outputs` brings them
+to the host through pinned buffers.
 
 Words and tables are int32 tensors holding the u32 bit patterns.
 """
@@ -46,11 +49,12 @@ from .preflight2 import (
     MAX_DIST_ALPHABET,
     PreflightResult,
     _build_consts,
-    preflight_many,
 )
 
-# Launches of device_decode_kernel, counted by its wrapper where it launches.
+# Launches of device_decode_kernel and device_decode_direct_kernel, each
+# counted by its wrapper where it launches.
 KERNEL_LAUNCHES = 0
+DIRECT_LAUNCHES = 0
 
 # a lane's table row (device_decode.cuh DD_*_AT)
 LIT_AT = 0
@@ -63,6 +67,8 @@ TAB_N = DXO_AT + MAX_DIST_ALPHABET   # 3718 int32
 SCAL_N = 8
 S_AT, S_NWORDS, S_BIT, S_MLEN, S_MAXBW, S_NPOSTFIX = range(6)
 CONSTS_N = 128
+RING_WORDS = 1024          # device_decode.cu DD_RING: the card's words ring
+WINDOW = 8192              # device_decode.cu DD_WIN: the card's window, bytes
 ALIGN = 64                 # int32s: each field starts on 256 bytes
 
 _CONSTS = np.ascontiguousarray(_build_consts()[0])
@@ -182,42 +188,83 @@ def _c_args(db: DeviceBatch, outs) -> list:
             db.max_words, db.out_size]
 
 
+def _launch(db: DeviceBatch, entry: str):
+    from ..build import kernels_lib
+
+    dev = db.body.device
+    outs = _alloc_outputs(db)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    with torch.cuda.device(dev):
+        rc = getattr(kernels_lib(), entry)(
+            *_c_args(db, outs), sms, torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{entry} launch failed: cudaError {rc}")
+    return outs
+
+
+def _device_of(db: DeviceBatch) -> torch.device:
+    _check(db)
+    dev = db.body.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
 def device_decode(db: DeviceBatch):
     """Decode every lane of a staged batch: (out (B, out_size) uint8, pos
     (B,) int32, err (B,) bool) on the batch's device.  CPU tensors take
     device_decode_ref; CUDA tensors launch csrc/device_decode.cu
     `device_decode_kernel` over a grid sized from the card's SM count."""
     global KERNEL_LAUNCHES
-    _check(db)
-    dev = db.body.device
-    if dev.type == "cpu":
+    if _device_of(db).type == "cpu":
         return device_decode_ref(db)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    from ..build import kernels_lib
-
-    outs = _alloc_outputs(db)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    with torch.cuda.device(dev):
-        rc = kernels_lib().brotli_torch_device_decode(
-            *_c_args(db, outs), sms, torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"device decode kernel launch failed: cudaError {rc}")
+    outs = _launch(db, "brotli_torch_device_decode")
     KERNEL_LAUNCHES += 1
     return outs
 
 
-def device_decode_host(db: DeviceBatch):
+def device_decode_direct(db: DeviceBatch):
+    """device_decode through the first design, `device_decode_direct_kernel`
+    (the table row in shared memory, words and bytes in device memory),
+    kept to be timed against the main path's kernel."""
+    global DIRECT_LAUNCHES
+    if _device_of(db).type == "cpu":
+        return device_decode_ref(db)
+    outs = _launch(db, "brotli_torch_device_decode_direct")
+    DIRECT_LAUNCHES += 1
+    return outs
+
+
+def launch_config() -> dict:
+    """device_decode_kernel's launch shape, from the built library."""
+    from ..build import kernels_lib
+
+    cfg = np.zeros(5, np.int32)
+    kernels_lib().brotli_torch_device_decode_config(cfg.ctypes.data)
+    return dict(zip(("threads", "shared_bytes", "blocks_an_sm", "ring_words",
+                     "window_bytes"), map(int, cfg)))
+
+
+def device_decode_host(db: DeviceBatch, *, direct: bool = False,
+                       ring_words: int = RING_WORDS, window: int = WINDOW):
     """csrc/device_decode.cuh's per-lane code built for the CPU
-    (build.host_lib), each copy's 32 threads as a loop.  For the tests,
-    which hold it against device_decode_ref and the JAX kernel."""
+    (build.host_lib), a warp's 32 threads as loops: the shared form at a
+    words ring of `ring_words` and a window of `window` bytes (powers of
+    two, at least 16 and 64), or with `direct` the direct form.  For the
+    tests, which hold it against device_decode_ref and the JAX kernel."""
     from ..build import host_lib
 
     _check(db)
     if db.body.device.type != "cpu":
         raise ValueError("the host shim takes CPU tensors")
     outs = _alloc_outputs(db)
-    if host_lib().brotli_torch_device_decode_host(*_c_args(db, outs)) != 0:
+    lib = host_lib()
+    if direct:
+        rc = lib.brotli_torch_device_decode_direct_host(*_c_args(db, outs))
+    else:
+        rc = lib.brotli_torch_device_decode_host(*_c_args(db, outs),
+                                                  ring_words, window)
+    if rc != 0:
         raise ValueError("host shim refused the batch")
     return outs
 
@@ -450,11 +497,35 @@ def collect_results(results: list, streams: list[bytes], lanes: list[int],
     return flagged
 
 
+def preflight_native(streams: list[bytes]) -> list[PreflightResult | None]:
+    """Each stream's PreflightResult, None for an ineligible one, from one
+    native parse of the batch (native.preflight_batch_native).  A native
+    library that fails to build or load raises: nothing falls back to the
+    Python parser."""
+    from ..native import preflight_batch_native
+
+    scal, lit, cmd, dist, dxe, dxo = preflight_batch_native(streams)
+    out: list[PreflightResult | None] = []
+    for i, s in enumerate(streams):
+        if scal[i, 0] != 1:
+            out.append(None)
+            continue
+        pad = (-len(s)) % 4 + 12
+        words = np.frombuffer(bytes(s) + b"\x00" * pad, dtype="<u4")
+        out.append(PreflightResult(
+            words=words, cmd_start_bit=int(scal[i, 2]), mlen=int(scal[i, 1]),
+            max_backward=(1 << int(scal[i, 5])) - 16,
+            lit_table=lit[i], cmd_table=cmd[i], dist_table=dist[i],
+            dist_extra=dxe[i], dist_offset=dxo[i],
+            npostfix=int(scal[i, 3]), ndirect=int(scal[i, 4])))
+    return out
+
+
 def preflight_split(streams: list[bytes]):
     """Preflight a batch: (the eligible streams' PreflightResults, their
     indices, and a result list holding the host decoder's bytes of the
     ineligible streams and None for the eligible ones)."""
-    pre = preflight_many(list(streams))
+    pre = preflight_native(list(streams))
     lanes = [i for i, p in enumerate(pre) if p is not None]
     results = [None if p is not None else host_decode(s)
                for p, s in zip(pre, streams)]

@@ -205,16 +205,23 @@ Phases, in order; any failure raises and the exit code is non-zero:
    (host clock, the 64 KB three times);
 27. device decode (run after phase 17) -- 1024 x 8 KB pieces of the
    corpus, each compressed alone by host_encode at quality 1 + i % 4 (its
-   own tables; over 8 spawned processes, the wall printed):
-   decode_batch_device(device="cuda") == the pieces with one
-   device_decode_kernel launch counted from 0, its fallback lanes exactly the lanes the kernel flags and all
-   of quality 4 (static-dictionary references, which the round-1 decode
-   leaves to the host), the quality 1-3 streams alone with 0 fallback
-   lanes; the kernel == device_decode_ref on the same CUDA tensors (out,
-   pos, err), timed beside its bound and the plain version, the host
+   own tables; over 8 spawned processes, the wall printed;
+   tools/dd_phases.py's batch): decode_batch_device(device="cuda") ==
+   the pieces with one device_decode_kernel launch and none of
+   device_decode_direct_kernel counted from 0, its fallback lanes
+   exactly the lanes the kernel flags, which are exactly the quality-4
+   lanes (static-dictionary references, which the round-1 decode leaves
+   to the host), the quality 1-3 streams alone with 0 fallback lanes;
+   both kernels == device_decode_ref on the same CUDA tensors (out, pos,
+   err), the plain version run once; each kernel's phase split (cycles a
+   lane by phase from an instrumented build, tools/dd_phases.py); both
+   timed in turns (direct, new, new, direct) beside the bound; the host
    half split (preflight, staging, kernel, unpack); decode_batch_v3 on
    the same batch (its lanes host-decoded); sharded_decode_batch over 4
-   logical slots == the pieces, one launch a slot.
+   logical slots == the pieces, one launch a slot; then 64 x 64 KB
+   pieces at quality 1-3 (rows 8x the new kernel's window): the two
+   kernels equal, every lane == its piece, the phase split and both in
+   turns, no plain run.
 
 Each of phases 20-24 sets the launch counters to 0 just before it and
 reads them just after; the kernel line gives them as `multi_launches`.
@@ -491,17 +498,21 @@ def ptxas_report(log: str) -> dict:
 
 def phase_build(tag: str) -> None:
     """nvcc's kernel library and, beside it, g++'s v2 preflight library
-    (the main path's host half, so [main] times no build)."""
+    (the main path's host half, so [main] times no build) and the phase
+    clocks' build of device_decode.cu (tools/dd_phases.py)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from brotli_tpu_torch import build
     from brotli_tpu_torch.ops import preflight2_native
+    from brotli_tpu_torch.tools import dd_phases
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(1) as pool:
+    with ThreadPoolExecutor(2) as pool:
         host = pool.submit(preflight2_native._lib)
+        clocks = pool.submit(dd_phases.phase_lib)  # [device decode]'s split
         build.kernels_lib()
         host.result()
+        clocks.result()
     dt = time.perf_counter() - t0
     print(f"[build] kernels and the v2 preflight library built and loaded "
           f"in {dt:.3f} s ({tag})")
@@ -513,6 +524,7 @@ def phase_build(tag: str) -> None:
                                   "zopfli_direct_kernel", "zopfli_kernel",
                                   "match_direct_kernel", "match_kernel",
                                   "records_direct_kernel", "records_kernel",
+                                  "device_decode_direct_kernel",
                                   "device_decode_kernel")
                       if k in name), None)
         if short:
@@ -2264,33 +2276,17 @@ DD_LANES = 1024   # [device decode]: independently compressed streams
 DD_PIECE = 8192   # bytes a stream
 
 
-def dd_encode(job: tuple[bytes, int]) -> bytes:
-    """One piece compressed alone by the port's host encoder (each stream
-    its own tables); a worker process's task."""
-    from brotli_tpu_torch import host_encode
-
-    piece, quality = job
-    return host_encode(piece, quality=quality)
-
-
-def dd_streams(card_str: str) -> tuple[list[bytes], list[bytes], list[int]]:
-    """corpus(DD_LANES * DD_PIECE) in DD_PIECE pieces, piece i compressed
-    alone at quality 1 + i % 4 on a pool of spawned processes (none
+def dd_streams(card_str: str, shape: str = "main"):
+    """dd_phases.SHAPES[shape]'s batch: corpus pieces, piece i compressed
+    alone (its own tables) by host_encode on 8 spawned processes (none
     touches the card): the pieces, their streams and qualities."""
-    import multiprocessing
-    from concurrent.futures import ProcessPoolExecutor
+    from brotli_tpu_torch.tools import dd_phases
 
-    data = corpus(DD_LANES * DD_PIECE)
-    pieces = [data[i * DD_PIECE: (i + 1) * DD_PIECE] for i in range(DD_LANES)]
-    qual = [1 + i % 4 for i in range(DD_LANES)]
-    workers = min(8, os.cpu_count() or 1)
-    t0 = time.perf_counter()
-    with ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context(
-            "spawn")) as pool:
-        streams = list(pool.map(dd_encode, zip(pieces, qual), chunksize=16))
-    print(f"[device decode] {card_str}: {DD_LANES} x {DD_PIECE} B pieces "
-          f"encoded alone by host_encode at quality 1-4 over {workers} "
-          f"processes: {time.perf_counter() - t0:.3f} s (host clock); "
+    lanes, size, _ = dd_phases.SHAPES[shape]
+    pieces, streams, qual, enc_s = dd_phases.pieces_and_streams(shape)
+    print(f"[device decode] {card_str}: {lanes} x {size} B pieces encoded "
+          f"alone by host_encode at quality {min(qual)}-{max(qual)}: "
+          f"{enc_s:.3f} s (host clock, 8 spawned processes); "
           f"{sum(map(len, streams))} B of streams")
     return pieces, streams, qual
 
@@ -2316,15 +2312,28 @@ def dd_bound(db, pre) -> tuple[float, str]:
     return bound_ms(n_in + db.n_lanes * (db.out_size + 4 + 1))
 
 
+def dd_phase_lines(tag: str, db, card_str: str) -> dict:
+    """tools/dd_phases.py's split of both kernels on the staged batch
+    (an instrumented build of its own; each output == the main build's)."""
+    from brotli_tpu_torch.tools import dd_phases
+
+    split = dd_phases.phase_split(db)
+    for form, sp in split.items():
+        print(f"[device decode] {card_str}: dd_phases {tag} {form}: "
+              + json.dumps(sp))
+    return split
+
+
 def phase_device_decode(card_str: str) -> dict:
     """The per-lane-table decode on 1024 independently compressed 8 KB
-    streams: decode_batch_device (the main path, launches counted from 0),
-    the kernel == device_decode_ref on the same CUDA tensors, its time
-    against the bound, the host half split, decode_batch_v3 on the same
-    batch, and sharded_decode_batch over 4 logical slots."""
+    streams: decode_batch_device (the main path, launches counted from
+    0), both kernels == device_decode_ref on the same CUDA tensors and
+    timed in turns against the bound, the phase split of each, the host
+    half split, decode_batch_v3 on the same batch, sharded_decode_batch
+    over 4 logical slots; then 64 x 64 KB rows (8x the shared kernel's
+    window), both kernels equal and timed in turns, no plain run."""
     import brotli_tpu_torch
     from brotli_tpu_torch.ops import device_decode as DD
-    from brotli_tpu_torch.ops.preflight2 import preflight_many
 
     pieces, streams, qual = dd_streams(card_str)
     q4 = np.array(qual) == 4
@@ -2333,37 +2342,44 @@ def phase_device_decode(card_str: str) -> dict:
     out, fell, _ = fallback_deltas(lambda: brotli_tpu_torch.decode_batch_device(
         streams, device="cuda"))
     torch.cuda.synchronize()
-    launches = DD.KERNEL_LAUNCHES
-    check(launches == 1, f"decode_batch_device: {launches} kernel launches")
+    launches, direct_launches = DD.KERNEL_LAUNCHES, DD.DIRECT_LAUNCHES
+    check(launches == 1 and direct_launches == 0,
+          f"decode_batch_device: {launches} kernel launches, "
+          f"{direct_launches} of the direct kernel")
     check(out == pieces, "decode_batch_device: output differs from the input")
 
-    pre = preflight_many(streams)
+    pre = DD.preflight_native(streams)
     check(all(p is not None for p in pre), "preflight refused a stream")
     db = DD.stage_batch(pre, "cuda")
     got = DD.device_decode(db)
+    direct = DD.device_decode_direct(db)
     # the plain version once (its steps replay as CUDA graphs; the capture
     # is inside the interval)
     ref = []
     plain = plain_ms(lambda: ref.append(DD.device_decode_ref(db)))
     ref = ref[0]
     err = max_abs_err(got, ref)
-    check(err == 0, f"device_decode kernel != device_decode_ref ({err})")
+    direct_err = max_abs_err(direct, ref)
+    check(err == 0 and direct_err == 0,
+          f"device_decode kernels != device_decode_ref ({err}, {direct_err})")
     flagged = got[2].cpu().numpy()
     pos = got[1].cpu().numpy()
     mlens = np.array([p.mlen for p in pre])
     # round 1 leaves static-dictionary references to the host: the
     # quality-4 streams have them, the others none
-    check(fell == int(flagged.sum()) and not flagged[~q4].any()
+    check(fell == int(flagged.sum()) and (flagged == q4).all()
           and (pos[~flagged] == mlens[~flagged]).all(),
           f"decode_batch_device: {fell} fallback lanes, {int(flagged.sum())} "
-          f"flagged ({int(flagged[~q4].sum())} below quality 4)")
+          f"flagged ({int(flagged[~q4].sum())} below quality 4, "
+          f"{int((~flagged[q4]).sum())} quality-4 lanes not)")
     print(f"[device decode] {card_str}: decode_batch_device == the pieces, "
-          f"{launches} launch of device_decode_kernel (counted from 0); "
-          f"{fell} fallback lanes, each a lane the kernel flags: "
-          f"{int(flagged[q4].sum())} of the {int(q4.sum())} quality-4 lanes "
-          "(static-dictionary references, left to the host as in the JAX "
-          f"kernel), 0 of the {int((~q4).sum())} others; kernel == "
-          "device_decode_ref on the same CUDA tensors (out, pos, err)")
+          f"{launches} launch of device_decode_kernel and {direct_launches} "
+          f"of device_decode_direct_kernel (counted from 0); {fell} fallback "
+          f"lanes, exactly the lanes the kernel flags: the {int(q4.sum())} "
+          "quality-4 lanes (static-dictionary references, left to the host "
+          f"as in the JAX kernel), 0 of the {int((~q4).sum())} others; both "
+          "kernels == device_decode_ref on the same CUDA tensors (out, pos, "
+          "err)")
     lower = [s for s, q in zip(streams, qual) if q < 4]
     got_low, fell_low, _ = fallback_deltas(
         lambda: brotli_tpu_torch.decode_batch_device(lower, device="cuda"))
@@ -2373,25 +2389,30 @@ def phase_device_decode(card_str: str) -> dict:
           "through decode_batch_device: equal to their pieces, 0 fallback "
           "lanes")
 
-    ms = device_ms(lambda: DD.device_decode(db))
+    split = dd_phase_lines("1024x8KB", db, card_str)
+    turns = in_turns(lambda: DD.device_decode(db),
+                     lambda: DD.device_decode_direct(db))
+    ms, direct_ms = turns["new"], turns["old"]
     bound = dd_bound(db, pre)
     # the host half, each part through a synchronise (best of 3)
-    parts = {"preflight": lambda: preflight_many(streams),
+    parts = {"preflight": lambda: DD.preflight_native(streams),
              "staging": lambda: DD.stage_batch(pre, "cuda"),
              "kernel": lambda: DD.device_decode(db),
              "unpack": lambda: DD.collect_results(
                  [None] * len(streams), streams, list(range(len(streams))),
                  *DD.fetch_outputs(*got))}
-    split = {k: min(wall_s(f) for _ in range(3)) * 1e3
-             for k, f in parts.items()}
+    split_ms = {k: min(wall_s(f) for _ in range(3)) * 1e3
+                for k, f in parts.items()}
     whole = min(wall_s(lambda: brotli_tpu_torch.decode_batch_device(
         streams, device="cuda")) for _ in range(3)) * 1e3
-    print(f"[device decode] {card_str}: device_decode_kernel {ms:.4f} ms "
-          f"(time_device_fn) at {DD_LANES} x {DD_PIECE} B, bound "
-          f"{bound[0]:.4f} ms ({bound[1]}), {bound[0] / ms:.4%} of it; plain "
-          f"version {plain:.1f} ms (CUDA events, once); host half (best of 3, host clock "
-          f"through a synchronise): "
-          + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items())
+    cfg = DD.launch_config()
+    print(f"[device decode] {card_str}: device_decode_kernel "
+          f"{turns_str(turns)} (time_device_fn) at {DD_LANES} x {DD_PIECE} B, "
+          f"bound {bound[0]:.6f} ms ({bound[1]}), {bound[0] / ms:.4%} of it "
+          f"(direct {bound[0] / direct_ms:.4%}); launch {cfg}; plain "
+          f"version {plain:.1f} ms (CUDA events, once); host half (best of 3, "
+          "host clock through a synchronise): "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in split_ms.items())
           + f"; whole decode_batch_device {whole:.3f} ms")
 
     t0 = time.perf_counter()
@@ -2404,21 +2425,52 @@ def phase_device_decode(card_str: str) -> dict:
           "host-decoded")
 
     mesh = brotli_tpu_torch.get_mesh(SLOTS, "cuda", logical=True)
-    DD.KERNEL_LAUNCHES = 0
+    DD.KERNEL_LAUNCHES = DD.DIRECT_LAUNCHES = 0
     t0 = time.perf_counter()
     sharded, sh_fell, _ = fallback_deltas(
         lambda: brotli_tpu_torch.sharded_decode_batch(streams, mesh))
     sh_s = time.perf_counter() - t0
     sh_launches = DD.KERNEL_LAUNCHES
-    check(sharded == pieces and sh_launches == SLOTS and sh_fell == fell,
+    check(sharded == pieces and sh_launches == SLOTS and sh_fell == fell
+          and DD.DIRECT_LAUNCHES == 0,
           f"sharded_decode_batch: {sh_launches} launches, {sh_fell} "
           "fallback lanes, or output differs")
     print(f"[device decode] {card_str}: sharded_decode_batch over {SLOTS} "
           f"logical slots == the pieces, {sh_launches} launches (counted from "
           f"0), {sh_fell} fallback lanes, {sh_s:.3f} s (host clock)")
-    return {"launches": launches, "err": err, "ms": ms, "plain_ms": plain,
-            "bound": bound, "host_ms": split, "whole_ms": whole,
-            "sharded_launches": sh_launches, "fallback_lanes": fell}
+
+    # rows longer than the window: the flushes, the ring's refills and
+    # copies read back from the row; no plain run (minutes at 64 KB)
+    lpieces, lstreams, _ = dd_streams(card_str, "long")
+    lpre = DD.preflight_native(lstreams)
+    check(all(p is not None for p in lpre), "preflight refused a 64 KB stream")
+    ldb = DD.stage_batch(lpre, "cuda")
+    lgot, ldirect = DD.device_decode(ldb), DD.device_decode_direct(ldb)
+    long_err = max_abs_err(lgot, ldirect)
+    lout, lpos, lflag = DD.fetch_outputs(*lgot)
+    check(long_err == 0 and not lflag.any()
+          and all(bytes(lout[k, : lpos[k]]) == p
+                  for k, p in enumerate(lpieces)),
+          f"64 KB rows: kernel != direct kernel ({long_err}) or != the pieces")
+    long_split = dd_phase_lines("64x64KB", ldb, card_str)
+    lturns = in_turns(lambda: DD.device_decode(ldb),
+                      lambda: DD.device_decode_direct(ldb))
+    lbound = dd_bound(ldb, lpre)
+    print(f"[device decode] {card_str}: {len(lpieces)} x 64 KB rows: "
+          "device_decode_kernel == device_decode_direct_kernel, every lane "
+          f"== its piece; {turns_str(lturns)} (time_device_fn), bound "
+          f"{lbound[0]:.6f} ms ({lbound[1]})")
+    return {"launches": launches, "err": err, "direct_err": direct_err,
+            "ms": ms, "direct_ms": direct_ms, "turns": turns["turns"],
+            "plain_ms": plain, "bound": bound, "host_ms": split_ms,
+            "whole_ms": whole, "sharded_launches": sh_launches,
+            "fallback_lanes": fell, "long_err": long_err,
+            "ms_64k": lturns["new"], "direct_ms_64k": lturns["old"],
+            "bound_ms_64k": lbound[0], "config": cfg,
+            "cycles": {f"{tag} {form}": sp["slowest"]["cycles"]
+                       for tag, sv in (("1024x8KB", split),
+                                       ("64x64KB", long_split))
+                       for form, sp in sv.items()}}
 
 
 # ---------------------------------------------------------------------------
@@ -2462,7 +2514,7 @@ def zero_launches() -> None:
                             "RECORD_DIRECT_LAUNCHES",
                             "PARSE_DIRECT_LAUNCHES")),
                        (Z, ("KERNEL_LAUNCHES", "DIRECT_LAUNCHES")),
-                       (DD, ("KERNEL_LAUNCHES",))):
+                       (DD, ("KERNEL_LAUNCHES", "DIRECT_LAUNCHES"))):
         for name in names:
             setattr(mod, name, 0)
 
@@ -2470,12 +2522,14 @@ def zero_launches() -> None:
 def no_direct_launches(what: str) -> None:
     from brotli_tpu_torch.ops import decode2 as D
     from brotli_tpu_torch.ops import decode3 as D3
+    from brotli_tpu_torch.ops import device_decode as DD
     from brotli_tpu_torch.ops import device_encode as E
     from brotli_tpu_torch.ops import device_zopfli as Z
     from brotli_tpu_torch.ops import resolve as R
 
     check(D.DIRECT_LAUNCHES == R.DIRECT_LAUNCHES == D3.DIRECT_LAUNCHES
           == E.SERIAL_PACK_LAUNCHES == Z.DIRECT_LAUNCHES
+          == DD.DIRECT_LAUNCHES
           == E.MATCH_DIRECT_LAUNCHES == E.RECORD_DIRECT_LAUNCHES
           == E.PARSE_DIRECT_LAUNCHES == 0,
           f"{what} launched a direct or serial kernel")
@@ -3228,10 +3282,21 @@ def main() -> int:
          "host_ms": zopfli["host_s"] * 1e3,
          "host_ms_32x8k": zopfli["host32_s"] * 1e3},
         # at 1024 x 8 KB independently compressed streams; host_ms: the
-        # host half's parts; sharded_launches: [device decode]'s 4 slots
+        # host half's parts; sharded_launches: [device decode]'s 4 slots;
+        # direct: the first design, kept and timed in turns with it (no launch
+        # on the main path); *_64k: 64 x 64 KB rows, in turns
         {**row("device_decode", "device_decode.cu",
                "brotli_tpu/ops/device_decode.py:204", dd["launches"],
-               dd["err"], dd["ms"], dd["plain_ms"], dd["bound"]),
+               max(dd["err"], dd["long_err"]), dd["ms"], dd["plain_ms"],
+               dd["bound"]),
+         "direct_ms": dd["direct_ms"], "turns": dd["turns"],
+         "ms_64k": dd["ms_64k"], "direct_ms_64k": dd["direct_ms_64k"],
+         "bound_ms_64k": dd["bound_ms_64k"], "config": dd["config"],
+         "slowest_lane_cycles": dd["cycles"],
+         "direct": {**row("device_decode_direct", "device_decode.cu",
+                          "brotli_tpu/ops/device_decode.py:204", 0,
+                          dd["direct_err"], dd["direct_ms"], dd["plain_ms"],
+                          dd["bound"]), "multi_launches": {}},
          "host_ms": dd["host_ms"], "whole_ms": dd["whole_ms"],
          "fallback_lanes": dd["fallback_lanes"],
          "sharded_launches": dd["sharded_launches"]},

@@ -65,8 +65,8 @@ FILE_SECONDS = {
     "tests/test_torch_pack.py": 141.71,
     "tests/test_torch_zopfli.py": 98.31,
     "tests/test_torch_resolve.py": 96.04,
+    "tests/test_torch_device_decode.py": 82.02,
     "tests/test_torch_parse.py": 75.87,
-    "tests/test_torch_device_decode.py": 66.05,
     "tests/test_font_and_dict.py": 65.60,
     "tests/test_torch_decode2.py": 46.86,
     "tests/test_torch_e2e.py": 38.36,
