@@ -22,8 +22,8 @@
 // ring, whose next half is in flight while the reader is in the other,
 // so no step waits on device memory.  On the fast path a command is one
 // table load and literals go in sub-groups of three loads without a
-// branch; a lane whose bits jump (malformed) decodes again on the
-// checked path.  Literals and copies go to a DD_WIN-byte window in
+// branch; a lane whose bits jump (malformed) decodes again by the
+// direct form.  Literals and copies go to a DD_WIN-byte window in
 // shared memory, which reaches the output row in 16-byte stores as it
 // wraps and when the lane ends; at 8 KB rows the whole row fits.  A copy
 // spreads over the warp by its period, with no division when it does not

@@ -37,7 +37,9 @@
 //   the words around the bit position in registers, and its output in a
 //   window there that goes to device memory in 16-byte stores: as the
 //   window wraps, and when the lane ends.  A copy is read from the window
-//   (from device memory only where its source lies past the window).
+//   (from device memory only where its source lies past the window).  A
+//   lane whose tables or bits this form cannot take decodes by the
+//   direct form.
 //
 // On the host (host_shim.cpp) a warp's 32 threads run as a loop
 // (resolve.cuh `each`), and the window and ring take any power-of-two
@@ -325,16 +327,12 @@ BROTLI_HD DDLane dd_lane(const u32* body, const i32* scal, const i32* tab,
 // (device_decode_kernel).
 // ---------------------------------------------------------------------
 
-// The compile-time knob of the shared form, swept by tools/dd_phases.py
-// --variants: DD_LIT_BITS, the width of the literal table the fast path
-// reads in one load (8-11 bits; a sub-group takes 32 / DD_LIT_BITS
-// literals, all within the bits one fill guarantees).
-#ifndef DD_LIT_BITS
-#define DD_LIT_BITS 10
-#endif
-static_assert(DD_LIT_BITS >= 8 && DD_LIT_BITS <= 11, "DD_LIT_BITS is 8-11");
+// the widths of the one-level literal and command tables the fast path
+// reads in one load (a sub-group takes 32 / DD_LIT_BITS literals, all
+// within the bits one fill guarantees)
+constexpr int DD_LIT_BITS = 10;
 constexpr int DD_SPEC = 32 / DD_LIT_BITS;  // literals a sub-group
-constexpr int DD_CMD_BITS = 10;            // the command table's width
+constexpr int DD_CMD_BITS = 10;
 
 constexpr i32 DD_WIN_MIN = 64;   // smallest output window, bytes (a power of two)
 // words a command may need past the reader: its symbols and extra bits
@@ -464,9 +462,9 @@ BROTLI_HD bool dd_stage_tables(const i32* row, u8* slice) {
 // The lane's words: a ring of R words in shared memory that holds words
 // [vlo, vhi), word w in slot w & rmask; while `pend`, words [vhi, vhi +
 // R/2) are in flight into the slots of the half behind the reader.  Past
-// the lane's own words the ring holds the fill values, so a read in range
-// is one shared-memory load; a read out of range (a bit position that
-// went back past vlo, or far ahead) takes the direct form's word().
+// the lane's own words the ring holds the fill values.  The command loop
+// keeps the words it may read in range (dd_keep), so a read is one
+// shared-memory load.
 struct DDRing {
   const u32* words;
   i32 n_words, max_words;
@@ -476,11 +474,6 @@ struct DDRing {
   bool pend;
 
   BROTLI_HD i32 half() const { return (rmask + 1) >> 1; }
-
-  BROTLI_HD u32 far(i32 w) const {
-    if (w < n_words) return ldg(words + w);
-    return w < max_words ? 0u : DD_WORD_FILL;
-  }
 
   // words [a, a + n) into their slots, thread t word a + t, a + t + 32,
   // ...: cp.async for the lane's own words, the fill value past them
@@ -513,18 +506,6 @@ struct DDRing {
     sync_warp();
   }
 
-  // word w wherever it is
-  BROTLI_HD u32 get(i32 w) {
-    if (w >= vlo && w < vhi) return ring[w & rmask];
-    if (pend && w >= vhi && w < vhi + half()) {
-      wait();
-      vhi += half();
-      pend = false;
-      return ring[w & rmask];
-    }
-    return far(w);
-  }
-
   // the reader is at word w: keep DD_AHEAD words past it in the ring
   // (waiting for the half in flight), and once it is a half past vlo,
   // send the next half into the slots behind it
@@ -543,55 +524,33 @@ struct DDRing {
 };
 
 // The lane's bit buffer: bits [bp, bp + avail) of the stream in `buf`,
-// lowest first, with bp = 32 * widx - avail (mod 2^32) and widx the next
-// word to append.  fill() takes each word through DDRing::get, so bp may
-// be anywhere (skip: a length past the buffer, an INT32_MIN entry's or
-// extra bits past it, moves it); fill_fast() takes it from its slot
-// unchecked, for the fast path, whose command loop keeps words [widx,
-// widx + DD_AHEAD) in the ring (dd_keep) and never moves bp but forward.
+// lowest first, and widx the next word to append.  Words come from their
+// ring slots unchecked: the bit position only moves forward, a length
+// that would move it otherwise (an INT32_MIN entry, extra bits past 24)
+// aborts the fast path instead.
 struct DDBuf {
   DDRing r;
   u64 buf;
   i32 avail, widx;
 
-  BROTLI_HD u32 bp() const { return (u32)widx * 32u - (u32)avail; }
-
-  // the buffer from bit position p, wherever it lies
-  BROTLI_HD void load(u32 p) {
+  // the buffer from bit position p, whose two words are in the ring
+  BROTLI_HD void start(u32 p) {
     const i32 w = (i32)(p >> 5);
     const u32 sh = p & 31u;
-    const u64 two = (u64)r.get(w) | ((u64)r.get(w + 1) << 32);
+    const u64 two = (u64)r.ring[w & r.rmask] |
+                    ((u64)r.ring[(w + 1) & r.rmask] << 32);
     buf = two >> sh;
     avail = 64 - (i32)sh;
     widx = w + 2;
   }
 
-  // at least 32 bits
+  // at least 32 bits, without a branch
   BROTLI_HD void fill() {
-    if (avail < 32) {
-      const u32 nxt = r.get(widx);
-      buf |= (u64)nxt << avail;
-      avail += 32;
-      ++widx;
-    }
-  }
-
-  // fill() without a branch, from the ring slot
-  BROTLI_HD void fill_fast() {
     const bool need = avail < 32;
     const u32 nxt = r.ring[widx & r.rmask];
     buf |= (u64)(need ? nxt : 0u) << (avail & 31);
     avail += need ? 32 : 0;
     widx += need ? 1 : 0;
-  }
-
-  template <bool FAST>
-  BROTLI_HD void fill() {
-    if (FAST) {
-      fill_fast();
-    } else {
-      fill();
-    }
   }
 
   BROTLI_HD u32 peek() const { return (u32)buf; }
@@ -601,31 +560,17 @@ struct DDBuf {
     buf >>= n;
     avail -= n;
   }
-
-  // n bits, any u32 n (the position wraps): past the buffer, a jump
-  BROTLI_HD void skip(u32 n) {
-    if (n < 64u && n <= (u32)avail) {
-      drop((i32)n);
-    } else {
-      load(bp() + n);
-    }
-  }
 };
-
-// a second-level table entry past the table's end: INT32_MIN, whose
-// length takes the bit position back
-constexpr u32 DD_FILL_NB = (u32)((DD_TAB_FILL >> 16) + 8);
 
 // The compact tables in shared memory.  sym() reads a symbol at the
 // buffer's bits and drops its length (dd_read_symbol on the u16 entries,
 // exact for entries that fit them); the buffer holds at least 8 bits on
-// entry, and at least 32 after a second-level read.  On the fast path a
-// second-level index past the table's end (INT32_MIN: a jump) drops
-// nothing and sets `abort`.
+// entry, and at least 32 after a second-level read.  A second-level index
+// past the table's end (INT32_MIN, whose length takes the bit position
+// back) drops nothing and sets `abort`.
 struct DDCompactTabs {
   const u8* slice;
 
-  template <bool FAST>
   BROTLI_HD i32 sym(int at, i32 n, DDBuf& R, bool& abort) const {
     const u16* t = (const u16*)slice + at;
     const i32 e0 = t[R.peek() & 0xFFu];
@@ -634,7 +579,7 @@ struct DDCompactTabs {
       R.drop(bits0);
       return e0 & 0xFFF;
     }
-    R.template fill<FAST>();
+    R.fill();
     const u32 v = R.peek();
     const u32 mask = (1u << (u32)bits0) - 1u;
     const u32 idx2 = (v & 0xFFu) + (u32)(e0 & 0xFFF) + ((v & mask) >> 8);
@@ -643,12 +588,10 @@ struct DDCompactTabs {
       const i32 e1 = t[idx2];
       R.drop((e1 >> 12) + 8);
       sym = e1 & 0xFFF;
-    } else if (FAST) {
-      abort = true;
     } else {
-      R.skip(DD_FILL_NB);
+      abort = true;
     }
-    R.template fill<FAST>();
+    R.fill();
     return sym;
   }
   BROTLI_HD u32 extra(i32 code) const { return slice[DD_DXE_OFF + code]; }
@@ -662,27 +605,6 @@ struct DDCompactTabs {
   BROTLI_HD u32 cmd1(u32 v) const {
     return ((const u16*)(slice + DD_CMD1_OFF))[v & ((1u << DD_CMD_BITS) - 1u)];
   }
-};
-
-// The row where it lies, for a lane whose entries do not fit (the
-// checked path only).
-struct DDWideTabs {
-  const i32* row;
-
-  template <bool FAST>
-  BROTLI_HD i32 sym(int at, i32 n, DDBuf& R, bool&) const {
-    R.fill();
-    i32 sym;
-    u32 nb;
-    dd_read_symbol(row + at, n, R.peek(), sym, nb);
-    R.skip(nb);
-    R.fill();
-    return sym;
-  }
-  BROTLI_HD u32 extra(i32 code) const { return (u32)row[DD_DXE_AT + code]; }
-  BROTLI_HD i32 offset(i32 code) const { return row[DD_DXO_AT + code]; }
-  BROTLI_HD u32 lit1(u32) const { return DD_LONG; }  // no one-level tables
-  BROTLI_HD u32 cmd1(u32) const { return DD_LONG; }
 };
 
 // The lane's output: a window of W bytes in shared memory holding
@@ -787,24 +709,20 @@ struct DDDist {
   }
 };
 
-// On the fast path, the words a command or a literal sub-group may read
-// are in the ring.
-template <bool FAST>
+// The words a command or a literal sub-group may read are in the ring.
 BROTLI_HD void dd_keep(DDBuf& R) {
-  if (FAST && DD_UNLIKELY(R.widx + DD_AHEAD > R.r.vhi ||
-                          R.widx >= R.r.vlo + R.r.half()))
+  if (DD_UNLIKELY(R.widx + DD_AHEAD > R.r.vhi ||
+                  R.widx >= R.r.vlo + R.r.half()))
     R.r.advance(R.widx);
 }
 
 // The shared form's command loop: dd_decode_lane's, with the tables in
-// `T`, the bits from the buffer `R` and the bytes into the window `O`.
-//
-// FAST, the path of every well-formed lane (compact tables): words come
-// from the ring unchecked (dd_keep), every fill is branch-free and every
-// length is dropped without a check, which holds while no length jumps
-// (an INT32_MIN entry, extra bits past 24); at the first one it sets
-// `abort` and stops, and the caller decodes the lane again from its start
-// on the checked path (!FAST), which takes any bits.  A command is one
+// `T`, the bits from the buffer `R` and the bytes into the window `O`;
+// the path of every well-formed lane.  Words come from the ring unchecked
+// (dd_keep), every fill is branch-free and every length is dropped
+// without a check, which holds while no length jumps (an INT32_MIN
+// entry, extra bits past 24); at the first one it sets `abort` and stops,
+// and the caller decodes the lane again by the direct form.  A command is one
 // load of the one-level command table; an insert that lies inside the
 // row and the window runs in sub-groups of up to DD_SPEC literals after
 // one fill, each a load of the one-level literal table read without a
@@ -813,8 +731,8 @@ BROTLI_HD void dd_keep(DDBuf& R) {
 // read.  Each literal is stored by every thread (the same byte to the
 // same slot).  Otherwise a literal at a time, clipped to the row,
 // flushing the window as it wraps.
-template <class Tabs, bool FAST>
-BROTLI_HD DDResult dd_decode_shared(const Tabs& T, DDBuf& R, DDWindow& O,
+BROTLI_HD DDResult dd_decode_shared(const DDCompactTabs& T, DDBuf& R,
+                                    DDWindow& O,
                                     const i32* consts, i32 mlen,
                                     i32 max_backward, i32 npostfix,
                                     i32 out_size, DDClock& clk, bool& abort) {
@@ -824,15 +742,10 @@ BROTLI_HD DDResult dd_decode_shared(const Tabs& T, DDBuf& R, DDWindow& O,
   DDDist ring{16, 15, 11, 4};
   i32 rb = 3;
   bool err = false;
-  // n extra bits: unchecked on the fast path up to 24 (the most a valid
-  // table or the LUT gives); more aborts it
+  // n extra bits: unchecked up to 24 (the most a valid table or the LUT
+  // gives); more aborts
   auto extra_bits = [&](u32 n) -> u32 {
-    R.template fill<FAST>();
-    if (!FAST) {
-      const u32 v = R.peek() & dd_mask(n);
-      R.skip(n);
-      return v;
-    }
+    R.fill();
     abort |= n > 24u;
     const u32 m = n > 24u ? 24u : n;
     const u32 v = R.peek() & ((1u << m) - 1u);
@@ -842,15 +755,15 @@ BROTLI_HD DDResult dd_decode_shared(const Tabs& T, DDBuf& R, DDWindow& O,
   while (mbl > 0 && !err) {
     // ---- command: symbol, insert and copy extra bits ----
     clk.count(DD_EV_CMD);
-    dd_keep<FAST>(R);
-    R.template fill<FAST>();
+    dd_keep(R);
+    R.fill();
     u32 codes;
-    const u32 ce = FAST ? T.cmd1(R.peek()) : DD_LONG;
+    const u32 ce = T.cmd1(R.peek());
     if (DD_LIKELY(!(ce & DD_LONG))) {
       R.drop((i32)(ce >> 11));
       codes = ce & 0x7FFu;
     } else {
-      codes = dd_cmd_codes(T.template sym<FAST>(DD_CMD_AT, DD_CMD_N, R, abort));
+      codes = dd_cmd_codes(T.sym(DD_CMD_AT, DD_CMD_N, R, abort));
     }
     const bool implicit = (codes >> 10) & 1u;
     const i32 ins_pack = consts[(codes >> 5) & 31u];
@@ -860,15 +773,15 @@ BROTLI_HD DDResult dd_decode_shared(const Tabs& T, DDBuf& R, DDWindow& O,
     const i32 copy_len =
         add_wrap(cp_pack & 0xFFFFF, (i32)extra_bits((u32)(cp_pack >> 20)));
     clk.mark(DD_PH_CMD);
-    if (FAST && DD_UNLIKELY(abort)) break;
+    if (DD_UNLIKELY(abort)) break;
 
     // ---- literals, into the window ----
     i32 k = 0;
-    if (FAST && pos + insert_len <= out_size &&
+    if (pos + insert_len <= out_size &&
         pos + insert_len <= O.flushed + W) {
       while (k < insert_len && !abort) {
-        dd_keep<FAST>(R);
-        R.fill_fast();
+        dd_keep(R);
+        R.fill();
         const i32 c = insert_len - k < DD_SPEC ? insert_len - k : DD_SPEC;
         u64 b = R.buf;
         i32 a = R.avail;
@@ -891,9 +804,8 @@ BROTLI_HD DDResult dd_decode_shared(const Tabs& T, DDBuf& R, DDWindow& O,
             if (u < c) O.at(pos + u) = (u8)e[u];
         } else {
           for (int u = 0; u < c; ++u) {
-            R.fill_fast();
-            O.at(pos + u) =
-                (u8)T.template sym<true>(DD_LIT_AT, DD_LIT_N, R, abort);
+            R.fill();
+            O.at(pos + u) = (u8)T.sym(DD_LIT_AT, DD_LIT_N, R, abort);
           }
         }
         pos += c;
@@ -902,10 +814,10 @@ BROTLI_HD DDResult dd_decode_shared(const Tabs& T, DDBuf& R, DDWindow& O,
       clk.count(DD_EV_LITF, k);
       clk.mark(DD_PH_LITF);
     }
-    for (; k < insert_len && !(FAST && abort); ++k) {
-      dd_keep<FAST>(R);
-      R.template fill<FAST>();
-      const i32 sym = T.template sym<FAST>(DD_LIT_AT, DD_LIT_N, R, abort);
+    for (; k < insert_len && !abort; ++k) {
+      dd_keep(R);
+      R.fill();
+      const i32 sym = T.sym(DD_LIT_AT, DD_LIT_N, R, abort);
       const i32 p = pos < last ? pos : last;  // pos >= 0
       if (p - O.flushed >= W) O.flush_down(p);
       O.at(p) = (u8)sym;
@@ -913,7 +825,7 @@ BROTLI_HD DDResult dd_decode_shared(const Tabs& T, DDBuf& R, DDWindow& O,
     }
     clk.count(DD_EV_LIT, insert_len);
     clk.mark(DD_PH_LIT);
-    if (FAST && DD_UNLIKELY(abort)) break;
+    if (DD_UNLIKELY(abort)) break;
     mbl -= insert_len;
     if (mbl <= 0) {
       err = mbl < 0;  // the copy check with a copy length of 0
@@ -921,11 +833,11 @@ BROTLI_HD DDResult dd_decode_shared(const Tabs& T, DDBuf& R, DDWindow& O,
     }
 
     // ---- distance ----
-    dd_keep<FAST>(R);
+    dd_keep(R);
     i32 dcode = 0;
     if (!implicit) {
-      R.template fill<FAST>();
-      dcode = T.template sym<FAST>(DD_DIST_AT, DD_DIST_N, R, abort);
+      R.fill();
+      dcode = T.sym(DD_DIST_AT, DD_DIST_N, R, abort);
     }
     i32 distance;
     if (implicit) {
@@ -939,7 +851,7 @@ BROTLI_HD DDResult dd_decode_shared(const Tabs& T, DDBuf& R, DDWindow& O,
       distance = add_wrap(T.offset(code), shl_wrap((i32)ev, npostfix));
     }
     clk.mark(DD_PH_DIST);
-    if (FAST && DD_UNLIKELY(abort)) break;
+    if (DD_UNLIKELY(abort)) break;
     const i32 max_distance = pos < max_backward ? pos : max_backward;
     if (!implicit && dcode > 0 && distance <= max_distance) {
       rb = (rb + 1) & 3;
@@ -965,6 +877,12 @@ BROTLI_HD DDResult dd_decode_shared(const Tabs& T, DDBuf& R, DDWindow& O,
 // table row staged into `slice` (dd_slice_bytes(rmask + 1, wmask + 1)
 // bytes, 16-byte aligned), the decode, the window's last bytes to `out`.
 // rmask + 1 >= DD_RING_MIN and wmask + 1 >= DD_WIN_MIN, powers of two.
+// A lane the fast path cannot take (entries the compact tables do not
+// hold, a first bit past the ring's first half, a length that jumps)
+// decodes from its start by the direct form, on its row and words where
+// they lie and straight into `out`: up to the jump both forms write the
+// same bytes at the same positions, so the direct form writes again every
+// byte the fast path flushed, and the window is dropped.
 BROTLI_HD DDResult dd_decode_lane_shared(const u32* body, const i32* scal,
                                          const i32* tab, const i32* consts,
                                          u8* out, int max_words, int out_size,
@@ -976,36 +894,33 @@ BROTLI_HD DDResult dd_decode_lane_shared(const u32* body, const i32* scal,
   ring.issue(0, R);  // in flight while the tables load
   const bool compact = dd_stage_tables(tab, slice);
   ring.wait();
+  const u32 start = (u32)scal[DD_BIT];
+  bool abort = !compact || (i32)(start >> 5) + 2 + DD_AHEAD > R;
   DDBuf bits{ring, 0u, 0, 0};
-  bits.load((u32)scal[DD_BIT]);
-  const bool in_ring = bits.widx + DD_AHEAD <= bits.r.vhi;
+  if (!abort) bits.start(start);
   clk.mark(DD_PH_STAGE);
   DDWindow win{slice + DD_STAB_BYTES + 4 * R, wmask,
                (i32)((uintptr_t)out & 15), 0, out};
-  const u32 start = (u32)scal[DD_BIT];
-  const i32 mlen = scal[DD_MLEN], maxbw = scal[DD_MAXBW],
-            npostfix = scal[DD_NPOSTFIX];
-  bool abort = false;
-  DDResult r;
-  if (compact && in_ring) {
-    r = dd_decode_shared<DDCompactTabs, true>(DDCompactTabs{slice}, bits, win,
-                                              consts, mlen, maxbw, npostfix,
-                                              out_size, clk, abort);
+  DDResult r{0, false};
+  if (!abort) {
+    r = dd_decode_shared(DDCompactTabs{slice}, bits, win, consts,
+                         scal[DD_MLEN], scal[DD_MAXBW], scal[DD_NPOSTFIX],
+                         out_size, clk, abort);
   }
-  if (!compact || !in_ring || abort) {
-    // the checked path, from the lane's start
-    clk.count(DD_EV_RESTART, abort ? 1 : 0);
-    bits.load(start);
-    win.flushed = 0;
-    r = compact ? dd_decode_shared<DDCompactTabs, false>(
-                      DDCompactTabs{slice}, bits, win, consts, mlen, maxbw,
-                      npostfix, out_size, clk, abort)
-                : dd_decode_shared<DDWideTabs, false>(
-                      DDWideTabs{tab}, bits, win, consts, mlen, maxbw,
-                      npostfix, out_size, clk, abort);
+  if (abort) {
+    clk.count(DD_EV_RESTART);
+#if defined(__CUDA_ARCH__)
+    const int thread = (int)(threadIdx.x & 31);
+#else
+    const int thread = 0;  // the host's dd_copy runs the 32 threads itself
+#endif
+    r = dd_decode_lane(dd_lane(body, scal, tab, consts, out, max_words,
+                               out_size),
+                       thread, clk);
+  } else {
+    // every position below min(pos, out_size) was written
+    win.flush(r.pos < out_size ? r.pos : out_size);
   }
-  // every position below min(pos, out_size) was written
-  win.flush(r.pos < out_size ? r.pos : out_size);
   bits.r.wait();  // no word left in flight into the slice
   clk.mark(DD_PH_FLUSH);
   return r;

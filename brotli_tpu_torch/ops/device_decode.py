@@ -188,14 +188,16 @@ def _c_args(db: DeviceBatch, outs) -> list:
             db.max_words, db.out_size]
 
 
-def _launch(db: DeviceBatch, entry: str):
+def _launch(db: DeviceBatch, entry: str, lib=None):
+    """`entry` of the kernel library (or of `lib`, a build of the same
+    sources) on the batch: its outputs; no launch is counted here."""
     from ..build import kernels_lib
 
     dev = db.body.device
     outs = _alloc_outputs(db)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     with torch.cuda.device(dev):
-        rc = getattr(kernels_lib(), entry)(
+        rc = getattr(lib or kernels_lib(), entry)(
             *_c_args(db, outs), sms, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{entry} launch failed: cudaError {rc}")

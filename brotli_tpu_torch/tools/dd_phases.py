@@ -2,7 +2,6 @@
 card.
 
     python3 -m brotli_tpu_torch.tools.dd_phases [--shapes main,long]
-        [--variants "DD_LIT_BITS=9" ...]
 
 Builds csrc/device_decode.cu a second time with -DDD_PHASE_CLOCKS, into a
 library of its own in brotli_tpu_torch/build/ (never the main path's).  In
@@ -25,8 +24,9 @@ kernel writes both to a device array a lane.  The phases (PHASES):
     flush    the shared form's window to the output row at the lane's end
 
 and the events (EVENTS): literals, commands, copies, copied bytes, word
-moves, literals on the fast path, restarts on the checked path.  The 32 threads
-of a lane run one chain, so the leader's cycles are the lane's, and with
+moves, literals on the fast path, lanes decoded by the direct form
+instead of the shared one's fast path.  The 32 threads of a lane run one
+chain, so the leader's cycles are the lane's, and with
 every lane resident at once the kernel's time is its slowest lane's.
 
 Shapes (SHAPES): "main", chip_smoke.py's [device decode] batch (1024
@@ -39,11 +39,9 @@ instrumented launch's time; every instrumented output equals the main
 build's of the same form.  Then the main build's two forms timed in turns
 (direct, shared, shared, direct; time_device_fn, CUDA events) and nvcc's
 registers, stack and spills of both kernels when this process built the
-main library.  With --variants, each argument is a set of the shared
-form's compile-time knobs (device_decode.cuh: DD_LIT_BITS),
-built into a library of its own (all at once), its output held equal to
-the main build's and its shared kernel timed in turns with the main
-build's (main, variant, variant, main) at each shape.
+main library.  The instrumented build is launched from its own library
+through ops/device_decode._launch, so the wrappers' launch counts and
+library stay as they are.
 
 Needs a CUDA card and nvcc; prints the card's name and power limit.
 """
@@ -67,7 +65,10 @@ PHASES = ("stage", "command", "literals", "distance", "copy", "words",
           "flush", "fast literals")
 EVENTS = ("literals", "commands", "copies", "copied bytes", "word moves",
           "fast literals", "restarts")
-FORMS = {"direct": (0, DD.device_decode_direct), "shared": (1, DD.device_decode)}
+# form: (its index in the clocks, its wrapper, its entry in the library)
+FORMS = {"direct": (0, DD.device_decode_direct,
+                    "brotli_torch_device_decode_direct"),
+         "shared": (1, DD.device_decode, "brotli_torch_device_decode")}
 # tag: (lanes, bytes a piece, qualities: piece i at quals[i % len(quals)])
 SHAPES = {"main": (1024, 8192, (1, 2, 3, 4)),
           "long": (64, 65536, (1, 2, 3))}
@@ -142,71 +143,9 @@ def read_clocks(lib) -> tuple[np.ndarray, np.ndarray]:
     return cyc, ev
 
 
-def variant_lib(i: int, knobs: str) -> ctypes.CDLL:
-    """device_decode.cu built with `knobs` ("NAME=VALUE ...") as -D
-    flags, into a library of its own."""
-    name = f"brotli_tpu_torch_dd_variant{i}"
-    if name not in build._libs:
-        nvcc = build._nvcc()
-        flags = [f"-D{k}" for k in knobs.split()]
-        path = build._build(
-            name, [nvcc, *build.NVCC_FLAGS, *flags],
-            [nvcc, *build.NVCC_LINK_FLAGS], [build.CSRC / "device_decode.cu"])
-        entry = build._DEVICE_DECODE_ARGS + [ctypes.c_int, ctypes.c_void_p]
-        build._load(name, path, {
-            "brotli_torch_device_decode": entry,
-            "brotli_torch_device_decode_direct": entry,
-            "brotli_torch_device_decode_config": [ctypes.c_void_p],
-        })
-    return build._libs[name]
-
-
-class using:
-    """The kernels' wrappers launch from `lib` inside the block."""
-
-    def __init__(self, lib):
-        self.lib = lib
-
-    def __enter__(self):
-        self.saved = build._libs["brotli_tpu_torch_kernels"]
-        build._libs["brotli_tpu_torch_kernels"] = self.lib
-
-    def __exit__(self, *exc):
-        build._libs["brotli_tpu_torch_kernels"] = self.saved
-
-
-def variants(db, specs: list[str], libs: list) -> list[dict]:
-    """Each variant's shared kernel == the main build's, and timed in
-    turns with it (main, variant, variant, main)."""
-    want = DD.device_decode(db)
-    out = []
-    for knobs, lib in zip(specs, libs):
-        with using(lib):
-            got = DD.device_decode(db)
-        if not all(torch.equal(a, b) for a, b in zip(got, want)):
-            raise RuntimeError(f"variant {knobs} != the main build")
-        ms = []
-        for which in ("main", "variant", "variant", "main"):
-            if which == "main":
-                ms.append(time_device_fn(lambda: DD.device_decode(db)) * 1e3)
-            else:
-                with using(lib):
-                    ms.append(time_device_fn(lambda: DD.device_decode(db)) * 1e3)
-        out.append({"knobs": knobs, "ms": [round(x, 4) for x in ms],
-                    "variant_ms": (ms[1] + ms[2]) / 2,
-                    "main_ms": (ms[0] + ms[3]) / 2})
-    return out
-
-
-def run(lib, fn, db):
-    """One launch of an instrumented form through its wrapper,
-    synchronised."""
-    saved = build._libs["brotli_tpu_torch_kernels"]
-    build._libs["brotli_tpu_torch_kernels"] = lib
-    try:
-        out = fn(db)
-    finally:
-        build._libs["brotli_tpu_torch_kernels"] = saved
+def run(lib, form: str, db):
+    """One launch of an instrumented form from `lib`, synchronised."""
+    out = DD._launch(db, FORMS[form][2], lib)
     torch.cuda.synchronize()
     return out
 
@@ -247,12 +186,12 @@ def phase_split(db, lib=None) -> dict:
     out = {}
     read_clocks(lib)
     slow = None  # the direct form's slowest lane, shown for both forms
-    for form, (k, fn) in FORMS.items():
+    for form, (k, fn, _) in FORMS.items():
         want = fn(db)
-        ms = time_device_fn(lambda: run(lib, fn, db), rep=1, samples=1,
+        ms = time_device_fn(lambda: run(lib, form, db), rep=1, samples=1,
                             warm_up=False) * 1e3
         cyc, ev = read_clocks(lib)
-        got = run(lib, fn, db)
+        got = run(lib, form, db)
         read_clocks(lib)
         if not all(torch.equal(a, b) for a, b in zip(got, want)):
             raise RuntimeError(f"instrumented {form} form != the main build's")
@@ -296,8 +235,6 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--shapes", default="main,long",
                     help="comma-separated SHAPES tags")
-    ap.add_argument("--variants", nargs="*", default=[],
-                    help='knob sets, each "NAME=VALUE ..."')
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("dd_phases: needs a CUDA card")
@@ -306,13 +243,7 @@ def main() -> int:
     build.kernels_lib()
     print(json.dumps({"ptxas": ptxas(build.last_build_log.get(
         "brotli_tpu_torch_kernels", "")), "launch": DD.launch_config()}))
-    from concurrent.futures import ThreadPoolExecutor
-
-    with ThreadPoolExecutor(len(args.variants) + 1) as pool:
-        lib_f = pool.submit(phase_lib)
-        var_f = [pool.submit(variant_lib, i, k)
-                 for i, k in enumerate(args.variants)]
-        lib, var_libs = lib_f.result(), [f.result() for f in var_f]
+    lib = phase_lib()
     for tag in args.shapes.split(","):
         pieces, streams, qual, enc_s = pieces_and_streams(tag)
         pre = DD.preflight_native(streams)
@@ -325,8 +256,6 @@ def main() -> int:
         turns = in_turns(db)
         print(json.dumps({"shape": tag, "card": c, "encode_s": round(enc_s, 3),
                           "in_turns": turns}))
-        for v in variants(db, args.variants, var_libs):
-            print(json.dumps({"shape": tag, "card": c, "variant": v}))
     return 0
 
 

@@ -341,7 +341,7 @@ def _wide(p, read: bool = False):
 
 def _extras(p):
     """p with 30 extra bits for every distance code that had any: past
-    the fast path's 24, so the lane decodes on the checked path."""
+    the fast path's 24, so the lane decodes again by the direct form."""
     dxe = p.dist_extra.copy()
     dxe[16:][dxe[16:] > 0] = 30
     return dataclasses.replace(p, dist_extra=dxe)
