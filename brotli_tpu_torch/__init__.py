@@ -63,19 +63,24 @@ C++ through ctypes), in the reference's layout:
                         (batch staging, table and header building)
 
 The tests hold every copy to its original.  The host codec is re-exported
-here so that a caller of the port needs no other import: `encode_sharded`
-(shared-table chunk streams), `host_encode` (one stream at quality 0-11),
-`Encoder` (streaming), `parallel_encode` (spliced fragments),
-`host_decode` and its `BrotliError`.
+here, under the JAX package's names, so that a caller of the port needs
+no other import: `encode` (one stream at quality 0-11; also as
+`host_encode`), `encode_fragment` (one stream of a spliced series),
+`Encoder` (streaming), `encode_sharded` (shared-table chunk streams),
+`encode_sharded_concat` (those chunks spliced into one stream),
+`parallel_encode` (spliced fragments), `decode` (also as `host_decode`),
+`decoded_size` and `BrotliError`.  The console script `brotli-tpu-torch`
+(`python3 -m brotli_tpu_torch.cli encode|decode <in> [<out>]`) runs them
+as `brotli-tpu` runs the JAX package's.
 
 The drivers run on the card unless the caller passes device="cpu".
 """
 
-from .decode import BrotliError
+from .decode import BrotliError, decode, decoded_size
 from .decode import decode as host_decode
-from .encode import Encoder
+from .encode import Encoder, encode, encode_fragment
 from .encode import encode as host_encode
-from .encode.sharded import encode_sharded
+from .encode.sharded import encode_sharded, encode_sharded_concat
 from .ops.decode2 import (decode_batch_device_e2e, decode_batch_pallas2,
                           fallback_stats)
 from .ops.decode3 import (decode_batch_v3, decode_batch_v3_full,
@@ -96,14 +101,19 @@ def encode_sharded_device(data, **kw):
     return encode_device_batch(data, **kw)
 
 
-__all__ = ["BrotliError", "Encoder", "broadcast_dictionary",
-           "broadcast_dictionary_chunks", "decode_batch_device",
+# the version of pyproject.toml, which both packages share
+__version__ = "0.2.0"
+
+__all__ = ["BrotliError", "Encoder", "__version__", "broadcast_dictionary",
+           "broadcast_dictionary_chunks", "decode", "decode_batch_device",
            "decode_batch_device_e2e",
            "decode_batch_pallas2", "decode_batch_v3", "decode_batch_v3_full",
            "decode_batch_v3_multichip", "decode_batches_multichip",
-           "decode_multihost", "encode_batches_multichip",
-           "encode_device_batch", "encode_fallback_stats", "encode_multihost",
-           "encode_sharded", "encode_sharded_device", "fallback_stats",
+           "decode_multihost", "decoded_size", "encode",
+           "encode_batches_multichip", "encode_device_batch",
+           "encode_fallback_stats", "encode_fragment", "encode_multihost",
+           "encode_sharded", "encode_sharded_concat",
+           "encode_sharded_device", "fallback_stats",
            "get_local_mesh", "get_mesh", "host_decode", "host_encode",
            "init_multihost", "parallel_encode", "sharded_decode_batch",
            "stage_dictionary", "zopfli_commands_device"]

@@ -157,7 +157,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
    new one's best of 5);
 18. probes -- run_probe_v2 at every level and run_probe_v2b at every
    variant of the TPU scripts, launches counted from 0; each kernel's
-   outputs held against its plain version bit for bit; ns per row;
+   outputs held against its plain version bit for bit; ns per row; then
+   the SM clock (nvidia-smi clocks.sm, sampled while level 5 runs back
+   to back: tools/probe_chain.sm_clock_mhz) and each probe's cycles a
+   row at it;
 19. profile -- profile_e2e_decode on the main-path batch: the round trip's
    old host half (the numpy preflight, batch_to_torch, collect_lanes)
    against the new one (stage_v2_native, collect_lanes_pinned), the first
@@ -221,7 +224,14 @@ Phases, in order; any failure raises and the exit code is non-zero:
    logical slots == the pieces, one launch a slot; then 64 x 64 KB
    pieces at quality 1-3 (rows 8x the new kernel's window): the two
    kernels equal, every lane == its piece, the phase split and both in
-   turns, no plain run.
+   turns, no plain run;
+28. cli (after phase 25) -- the port's command line as a user runs it,
+   `python3 -m brotli_tpu_torch.cli` in subprocesses: encode 64 KB of the
+   corpus at -q 5 and with --sharded and 16 KB at the default quality,
+   then decode each; rc 0, the stderr lines, every file back equal to its
+   input; the --sharded file then decodes on the card through
+   decode_batch_v3_full(device="cuda") == the input, 0 fallback lanes,
+   the decode3 kernel launched and the direct one not.
 
 Each of phases 20-24 sets the launch counters to 0 just before it and
 reads them just after; the kernel line gives them as `multi_launches`.
@@ -2867,6 +2877,17 @@ def phase_probes(card_str: str) -> dict:
                 bound=bound_ms(4 * (1024 + refills * P.REFILL * 128
                                     + outs[0].numel() + outs[1].numel()),
                                n * V2B_ROW_OPS[variant["ncarry"]]))
+    # the SM clock while level 5 runs back to back (its launches after the
+    # counts above were read), and each probe's ns a row in cycles at it
+    from brotli_tpu_torch.tools.probe_chain import sm_clock_mhz
+
+    mhz = sm_clock_mhz(lambda: P.probe_v2(a, 5))
+    clock = sorted(mhz)[len(mhz) // 2]
+    cycles = [f"{label} {ns * clock / 1e3:.1f}"
+              for label, (_, ns) in {**v2, **v2b}.items()]
+    print(f"[probe] {card_str}: SM clock {clock} MHz (nvidia-smi clocks.sm, "
+          f"median of {len(mhz)} samples while probe_v2 L5 ran); cycles a "
+          f"row: {'; '.join(cycles)}")
     return res
 
 
@@ -3089,6 +3110,102 @@ def phase_zopfli(card_str: str) -> dict:
             "host_s": min(host_runs), "host32_s": sum(host32)}
 
 
+CLI_RUNS = (("64 KB -q 5", 65536, ["-q", "5"]),
+            ("64 KB --sharded", 65536, ["--sharded"]),
+            ("16 KB default quality", 16384, []))
+
+
+def cli_procs(argvs: list[list[str]]) -> list[tuple[float, str]]:
+    """`python3 -m brotli_tpu_torch.cli <argv>` for each argv, all started
+    together; each must exit 0.  Returns (wall s from the start to its
+    exit, stderr) a run; every process has ended when this returns."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-m", "brotli_tpu_torch.cli",
+                               *argv], cwd=ROOT, env=env, text=True,
+                              stdout=subprocess.DEVNULL,
+                              stderr=subprocess.PIPE)
+             for argv in argvs]
+    ends = [None] * len(procs)
+    try:
+        while None in ends:
+            check(time.perf_counter() - t0 < 300, "[cli] a run took 300 s")
+            for i, proc in enumerate(procs):
+                if ends[i] is None and proc.poll() is not None:
+                    ends[i] = time.perf_counter() - t0
+            time.sleep(0.01)
+        errs = [proc.stderr.read().strip() for proc in procs]
+    finally:
+        for proc in procs:
+            proc.kill()
+            proc.wait()
+            proc.stderr.close()
+    for argv, proc, err in zip(argvs, procs, errs):
+        check(proc.returncode == 0,
+              f"[cli] {argv} rc {proc.returncode}: {err[-2000:]}")
+    return list(zip(ends, errs))
+
+
+def phase_cli(card_str: str) -> None:
+    """The port's command line as a user runs it: `python3 -m
+    brotli_tpu_torch.cli encode` of 64 KB of the corpus at -q 5 and with
+    --sharded and of 16 KB at the default quality (11), then `decode` of
+    each, in subprocesses (the encodes together, then the decodes); every
+    run exits 0 and every file decodes to its input.  Then the --sharded
+    stream (shared-table chunks spliced into one stream) decodes on the
+    card through decode_batch_v3_full with 0 fallback lanes and the v3
+    kernel launched, the direct one not."""
+    import brotli_tpu_torch
+    from brotli_tpu_torch.ops import decode3 as D3
+
+    work = ROOT / "brotli_tpu_torch" / "build" / "cli"
+    work.mkdir(parents=True, exist_ok=True)
+    inputs = {}
+    for tag, n, _ in CLI_RUNS:
+        path = work / f"{tag.replace(' ', '_')}.bin"
+        path.write_bytes(corpus(n))
+        (work / (path.name + ".br")).unlink(missing_ok=True)
+        inputs[tag] = path
+    enc = cli_procs([["encode", *opts, str(inputs[tag])]
+                     for tag, _, opts in CLI_RUNS])
+    for path in inputs.values():
+        path.rename(path.with_suffix(".orig"))
+    dec = cli_procs([["decode", str(p) + ".br"] for p in inputs.values()])
+    for (tag, n, opts), (enc_s, enc_err), (dec_s, dec_err) in zip(
+            CLI_RUNS, enc, dec):
+        path = inputs[tag]
+        check(path.read_bytes() == path.with_suffix(".orig").read_bytes()
+              == corpus(n), f"[cli] {tag}: the decoded file differs")
+        size = (work / (path.name + ".br")).stat().st_size
+        check(enc_err.endswith(f"{n} -> {size} bytes ({path}.br)")
+              and dec_err.endswith(f"{size} -> {n} bytes ({path})"),
+              f"[cli] {tag}: stderr {enc_err[-200:]!r} {dec_err[-200:]!r}")
+        print(f"[cli] {card_str}: encode {' '.join(opts) or '(-q 11)'} of "
+              f"{n} B -> {size} B in {enc_s:.3f} s, decode back equal in "
+              f"{dec_s:.3f} s (host clock, the runs of a step started "
+              "together, Python start-up included), rc 0")
+    stream = (work / (inputs["64 KB --sharded"].name + ".br")).read_bytes()
+    want = corpus(65536)
+    d0, dd0 = D3.KERNEL_LAUNCHES, D3.DIRECT_LAUNCHES
+    t0 = time.perf_counter()
+    (got,), fell, _ = fallback_deltas(
+        lambda: brotli_tpu_torch.decode_batch_v3_full([stream],
+                                                      device="cuda"))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = D3.KERNEL_LAUNCHES - d0
+    check(got == want, "[cli] the --sharded stream decodes wrong on the card")
+    check(fell == 0, f"[cli] {fell} fallback lanes decoding the --sharded "
+          "stream")
+    check(launches >= 1 and D3.DIRECT_LAUNCHES == dd0,
+          f"[cli] decode_batch_v3_full: {launches} decode3 launches, "
+          f"{D3.DIRECT_LAUNCHES - dd0} direct")
+    print(f"[cli] {card_str}: the --sharded file ({len(stream)} B) decoded "
+          f"on the card through decode_batch_v3_full(device='cuda') == the "
+          f"64 KB input in {dt:.3f} s (host clock), {launches} decode3 "
+          f"launches, 0 fallback lanes")
+
+
 def phase_entry() -> None:
     """The port's entry(): the entropy kernel on a staged 32-stream batch."""
     from brotli_tpu_torch.entry import entry
@@ -3109,6 +3226,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     import brotli_tpu_torch  # noqa: F401  (fails outside a checkout)
+    import brotli_tpu_torch.cli  # noqa: F401
 
     check_no_reference_imports()
     t_run = time.perf_counter()
@@ -3177,6 +3295,7 @@ def main() -> int:
     walled("multihost", phase_multihost, card_str)
     walled("dryrun", phase_dryrun, card_str)
     walled("entry", phase_entry)
+    walled("cli", phase_cli, card_str)
     zopfli = walled("zopfli", phase_zopfli, card_str)
     check_no_reference_imports()
 

@@ -77,6 +77,7 @@ FILE_SECONDS = {
     "tests/test_torch_multihost.py": 24.04,
     "tests/test_torch_host_copy.py": 20.39,
     "tests/test_torch_stage3_native.py": 19.76,
+    "tests/test_torch_cli.py": 19.63,
     "tests/test_torch_preflight2_native.py": 13.20,
     "tests/test_torch_probe.py": 12.60,
     "tests/test_torch_schedule.py": 12.03,

@@ -25,6 +25,7 @@ import torch
 from jax.experimental import pallas as pl
 
 from brotli_tpu_torch.tools import probe as P
+from brotli_tpu_torch.tools import probe_chain as PC
 from brotli_tpu_torch.utils import benchmarks as B
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -177,6 +178,51 @@ def test_timer_refuses_cpu():
     else:
         with pytest.raises(RuntimeError, match="CUDA card"):
             B.time_device_fn(lambda x: x + 1, a)
+
+
+# A loop of cuobjdump -sass lines in its format: one row a pass, whose
+# carried chain is b0 (R6) -> R9 (LOP3 with a predicate and a register
+# result) -> R12 -> R16 (LDS) -> R7 (IADD) -> R6 (VIADD, LOP3), 6
+# instructions; the counter R5 and its compare run beside it.
+SASS_LOOP = """
+        /*0200*/                   IMAD.MOV.U32 R5, RZ, RZ, RZ ;      /* 0x000000ffff057224 */
+        /*0210*/                   VIADD R3, R7, 0x3039 ;             /* 0x0000303907037836 */
+        /*0220*/                   LOP3.LUT R6, R6, R3, RZ, 0x3c, !PT ;
+        /*0230*/                   LOP3.LUT P2, R9, R6, 0x1f, RZ, 0xc0, !PT ;
+        /*0240*/                   IMAD.SHL.U32 R12, R9, 0x4, RZ ;
+        /*0250*/                   LDS R16, [R12+UR5] ;
+        /*0260*/                   IMAD.WIDE.U32 R12, R5, 0x400, R2 ;
+        /*0270*/                   ISETP.NE.AND P3, PT, R5, 0x100, PT ;
+        /*0280*/                   STG.E desc[UR6][R12.64], R6 ;
+        /*0290*/               @P2 IADD3 R7, R7, R16, RZ ;
+        /*02a0*/                   VIADD R5, R5, 0x1 ;
+        /*02b0*/               @P3 BRA 0x210 ;                    /* 0xfffffff800383947 */
+        /*02c0*/                   EXIT ;
+        /*02d0*/                   BRA 0x2d0;
+"""
+
+
+def test_probe_chain_reads_sass():
+    """tools/probe_chain.py's SASS reading on a hand-written loop: each
+    instruction's sources and destinations, the loops closed by a backward
+    branch, and the chain a pass adds."""
+    insts = PC.parse_sass(SASS_LOOP)
+    assert [i[0] for i in insts] == list(range(0x200, 0x2e0, 0x10))
+    by_op = {i[0]: (i[2], i[3]) for i in insts}
+    assert by_op[0x230] == (["R6"], ["P2", "R9"])
+    assert by_op[0x250] == (["R12", "UR5"], ["R16"])
+    assert by_op[0x260] == (["R5", "R2"], ["R12", "R13"])
+    assert by_op[0x270] == (["R5"], ["P3"])
+    assert by_op[0x280] == (["UR6", "R12", "R13", "R6"], [])
+    # a guarded instruction also reads its guard and its old destination
+    assert by_op[0x290] == (["R7", "R16", "P2", "R7"], ["R7"])
+    assert by_op[0x2b0] == (["P3"], [])
+    loops = PC.loops(insts)
+    assert [(lp["start"], lp["end"], lp["instructions"], lp["stg"],
+             lp["lds"]) for lp in loops] == [("0x210", "0x2b0", 11, 1, 1),
+                                             ("0x2d0", "0x2d0", 1, 0, 0)]
+    assert loops[0]["chain"] == 6.0
+    assert PC.chain_per_iteration([]) == 0.0
 
 
 @pytest.mark.cuda
